@@ -7,17 +7,26 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles every kernel of the port with nvcc (timed);
+  2. build: compiles every kernel of the port with nvcc, one process per
+     source, all started together (timed);
   3. kernel parity: each kernel against its plain torch version on the card
-     at the shapes the solvers give it, float32 and float64, with timings
-     (CUDA events) and the analytic memory/arithmetic bound;
-  4. main path: ``pipeline.ba.bundle_adjustment_rounds`` (3 rounds, float32)
+     (K1 at the shapes the solvers give it, float32 and float64; K2/K3 on
+     hand-built tiles that reach every branch), with timings (CUDA events)
+     and the analytic memory/arithmetic bound;
+  4. BA path: ``pipeline.ba.bundle_adjustment_rounds`` (3 rounds, float32)
      on a seeded synthetic scene at the ETH3D-indoor shape (200 images, 50k
      points, 8 observations per point), then one global-positioning LM
      step at the same size; launch counters prove both went through K1.
      The process's first ``torch.func.vmap(jacfwd)`` call, a one-time
      set-up cost of torch, is timed on its own just before;
-  5. prints the kernels line, the card line and, last, the ok line.
+  5. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
+     (photos rendered by the port's rasterizer with SH degree 3, written as
+     PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
+     SH degree 3 with refine and opacity reset on the card, evaluates and
+     saves a checkpoint; launch counters prove every step went through K2
+     and K3.  K2/K3 are then held against their plain versions on one
+     view's real tiles;
+  6. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -28,12 +37,20 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from instantsfm_tpu_torch import config
+from instantsfm_tpu_torch.gs import composite as k23
+from instantsfm_tpu_torch.gs import rasterize as gs_raster
+from instantsfm_tpu_torch.gs import sh as gs_sh
+from instantsfm_tpu_torch.gs import strategy as gs_strategy
+from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+from instantsfm_tpu_torch.io import colmap_model as cmio
+from instantsfm_tpu_torch.io.image import imwrite
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.pipeline import ba
 from instantsfm_tpu_torch.scene import cameras as cm
@@ -48,9 +65,15 @@ OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,        # non-tensor-core FP32
               torch.float64: 34e12}        # non-tensor-core FP64
+# special-function unit (exp2, lg2, rcp): 16 results per SM per clock on
+# compute capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput), 132 SMs at the 1.98 GHz boost clock of the 67 TFLOP/s above
+PEAK_SFU = 132 * 16 * 1.98e9
 L2_FLUSH_BYTES = 256 << 20                 # overwritten to empty the 50 MB L2
 BA_ITER_CAP = 40                           # max LM iterations per BA round
 SEED = 0
+GS_POINTS, GS_VIEWS, GS_W, GS_H = 100_000, 24, 800, 608   # bench_gs.py:36
+GS_STEPS, GS_RESET_EVERY = 40, 25
 
 
 def log(msg):
@@ -63,7 +86,7 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def time_ms(fn, reps, flush=None):
+def time_ms(fn, reps, flush=None, queued=True):
     """Mean device time of one call of ``fn`` over ``reps`` calls (CUDA
     events, after two warm-up calls).
 
@@ -77,7 +100,9 @@ def time_ms(fn, reps, flush=None):
     us a call) would otherwise leave the card idle between short kernels
     and be counted as kernel time.  The first event must still be pending
     once all calls are queued, or the sleep is lengthened and the run
-    repeated."""
+    repeated.  ``queued=False`` skips the sleep: the events then also count
+    the device's idle time while the host dispatches ``fn``, the time a
+    chain of small torch ops (a plain version) really costs."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -86,7 +111,8 @@ def time_ms(fn, reps, flush=None):
              for _ in range(reps if flush is not None else 1)]
     cycles = 10 ** 7
     for _ in range(6):
-        torch.cuda._sleep(cycles)
+        if queued:
+            torch.cuda._sleep(cycles)
         if flush is None:
             pairs[0][0].record()
             for _ in range(reps):
@@ -98,7 +124,7 @@ def time_ms(fn, reps, flush=None):
                 start.record()
                 fn()
                 end.record()
-        queued_ahead = not pairs[0][0].query()
+        queued_ahead = not queued or not pairs[0][0].query()
         torch.cuda.synchronize()
         if queued_ahead:
             return sum(s.elapsed_time(e) for s, e in pairs) / reps
@@ -184,7 +210,7 @@ def k1_case(name, lengths, C, PC, dtype, device, reps):
     return rec
 
 
-def kernel_parity(device):
+def k1_parity(device):
     rng = np.random.default_rng(SEED)
     mixed = rng.choice([2, 5, 8, 20, 32, 50, 64, 300, 512, 1500, 2048],
                        size=1500)
@@ -202,7 +228,225 @@ def kernel_parity(device):
     return cases
 
 
-# ------------------------------------------------------------ main path
+# ------------------------------------------------------------ K2/K3 parity
+
+def composite_branch_cases(K, seed=SEED):
+    """Hand-built tiles (ntx = 3) that reach every branch of K2/K3:
+    0 empty (nchunks 0); 1 saturates in chunk 0 and exits early; 2 fills all
+    K slots with faint gaussians (no exit); 3 populated rows in 2 chunks of
+    a budget of up to 4; 4 rows with sigma <= 0 (non-PD conics), alpha
+    clipped at 0.999 and alpha under 1/255; 5 a random mix.
+    Returns numpy (attrs [6, K, 16] f32, nchunks [6] int32, ntx)."""
+    rng = np.random.default_rng(seed)
+    ntx, n = 3, 6
+    maxc = K // k23.CHUNK
+    A = np.zeros((n, K, k23.ATTR), np.float32)
+    nch = np.zeros(n, np.int32)
+
+    def fill(t, rows, scale, opac):
+        ox, oy = (t % ntx) * 16, (t // ntx) * 16
+        A[t, :rows, 0] = ox + rng.uniform(-4, 20, rows)
+        A[t, :rows, 1] = oy + rng.uniform(-4, 20, rows)
+        s = rng.uniform(*scale, rows)
+        A[t, :rows, 2] = 1 / s ** 2 * rng.uniform(0.7, 1.3, rows)
+        A[t, :rows, 3] = rng.uniform(-0.2, 0.2, rows) / s ** 2
+        A[t, :rows, 4] = 1 / s ** 2 * rng.uniform(0.7, 1.3, rows)
+        A[t, :rows, 5:8] = rng.uniform(0, 1, (rows, 3))
+        A[t, :rows, 8] = rng.uniform(*opac, rows)
+        A[t, :rows, 9] = np.sort(rng.uniform(1, 9, rows))
+        nch[t] = -(-rows // k23.CHUNK)
+
+    fill(1, K, (30, 60), (0.9, 0.99))            # saturates in chunk 0
+    nch[1] = maxc
+    fill(2, K, (2, 8), (0.02, 0.08))             # all of K, no exit
+    fill(3, min(K, 200), (2, 6), (0.1, 0.5))
+    nch[3] = min(maxc, 4)
+    fill(4, 128, (2, 6), (0.3, 0.9))
+    A[4, :20, 2] *= -1                           # sigma <= 0 rows
+    A[4, 20:30, 8] = 1.0                         # clipped at 0.999
+    A[4, 30:40, 8] = 0.003                       # alpha < 1/255
+    fill(5, min(K, 300), (1, 10), (0.05, 0.95))
+    return A, nch, ntx
+
+
+def entered(logt):
+    """[n, K/128] bool: the chunks K2's walk entered."""
+    return logt.amax(dim=2) > 0.5 * k23.NOT_RUN
+
+
+def composite_work(attrs, logt, ntx):
+    """(entered chunks, (gaussian, pixel) pairs in them, pairs whose alpha
+    is live): what K2/K3 must evaluate on these inputs."""
+    t_idx, c_idx = entered(logt).nonzero(as_tuple=True)
+    px, py = k23.pixel_coords(attrs.shape[0], ntx, attrs.device)
+    rows = torch.arange(k23.CHUNK, device=attrs.device)
+    live = 0
+    for lo in range(0, len(t_idx), 256):
+        t, c = t_idx[lo:lo + 256], c_idx[lo:lo + 256]
+        a = attrs[t[:, None], c[:, None] * k23.CHUNK + rows[None, :]]
+        live += int((k23.alpha_terms(a, px[t], py[t])[0] > 0).sum())
+    E = len(t_idx)
+    return E, E * k23.CHUNK * k23.P, live
+
+
+def _bound(nbytes, flops, sfu):
+    """(bound_ms, bound_by, counts): the largest of the byte, FP32 and
+    special-function times."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / PEAK_FLOPS[torch.float32]
+    t_s = sfu / PEAK_SFU
+    t = max(t_b, t_f, t_s)
+    return (t * 1e3, "bytes" if t_b >= max(t_f, t_s) else "operations",
+            dict(mbytes=nbytes / 1e6, gflop=flops / 1e9, gsfu=sfu / 1e9,
+                 bytes_ms=t_b * 1e3, fp32_ms=t_f * 1e3, sfu_ms=t_s * 1e3))
+
+
+def k2_bound(attrs, logt, work):
+    """K2: the entered chunks' attrs and nchunks read once, out and logt
+    written once; per (gaussian, pixel) pair of an entered chunk 16 FP32
+    operations (offsets, the conic form, exp argument, opacity, clip and
+    the two tests) and one exp, per live pair 12 more (weight, colour and
+    depth sums, prefix) plus a log1p and an exp."""
+    n, K, A = attrs.shape
+    E, pairs, live = work
+    nbytes = 4 * (E * k23.CHUNK * A + n + n * 8 * k23.P
+                  + n * (K // k23.CHUNK) * k23.P)
+    return _bound(nbytes, 16 * pairs + 12 * live, pairs + 2 * live)
+
+
+def k3_bound(attrs, logt, work):
+    """K3: the entered chunks' attrs, the 5 live rows of gout and logt read
+    once, all of g_attrs written once; per pair of an entered chunk the 16
+    FP32 operations and the exp of the alpha terms, per live pair 3 for the
+    prefix and T, 51 for the gradient terms and their pixel sums, a log1p,
+    an exp and a reciprocal."""
+    n, K, A = attrs.shape
+    E, pairs, live = work
+    nbytes = 4 * (E * k23.CHUNK * A + n * 5 * k23.P
+                  + n * (K // k23.CHUNK) * k23.P + n * K * A)
+    return _bound(nbytes, 16 * pairs + 54 * live, pairs + 3 * live)
+
+
+def _tied_tiles(logt_a, logt_b):
+    """Tiles whose two walks entered different chunks.  Raises unless each
+    is a float tie of the exit vote: the walk that went on found its
+    largest log T within 1e-3 of log 1e-4."""
+    ea, eb = entered(logt_a), entered(logt_b)
+    tiles = (ea != eb).any(dim=1).nonzero()[:, 0]
+    for t in tiles.tolist():
+        c = int((ea[t] != eb[t]).nonzero()[0, 0])
+        m = max(float(logt_a[t, c].max()), float(logt_b[t, c].max()))
+        if abs(m - k23.LOG_EPS_T) > 1e-3:
+            raise AssertionError(f"K2 tile {t}: walks differ at chunk {c} "
+                                 f"(max log T {m})")
+    return tiles
+
+
+def _assert_rel(name, got, want, rel, max_ties=0):
+    """|got - want| <= rel * max|want| elementwise, except for at most
+    ``max_ties`` elements (see ``k23_case``).  Returns (max abs error of
+    the others, number of elements beyond the tolerance)."""
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs()
+    bad = ~(err <= rel * scale)
+    n_bad = int(bad.sum())
+    if n_bad > max_ties or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {n_bad} elements beyond {rel} * "
+                             f"{scale}, max abs err {err.max().item()}")
+    return err[~bad].max().item() if n_bad < err.numel() else 0.0, n_bad
+
+
+def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False):
+    """K2 and K3 against their plain versions on the card, timed.
+    Tolerances (float32, sums in other orders): rel 1e-5 of each output row
+    group's max for K2, 1e-4 of each gradient column's max for K3.  The
+    kernels evaluate the alpha terms with the plain version's roundings, so
+    both take the same side of each threshold; with ``allow_ties`` (a real
+    view's tiles) a tile whose exit vote is a float tie is set apart, and
+    up to 16 elements per output may still differ (logged as ``ties``)."""
+    dev = attrs.device
+    max_ties = 16 if allow_ties else 0
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gout = torch.randn((attrs.shape[0], 8, k23.P), generator=g, device=dev)
+    want_out, want_logt = k23.composite_fwd_reference(attrs, nchunks, ntx)
+    got_out, got_logt = k23.composite_fwd(attrs, nchunks, ntx)
+    torch.cuda.synchronize()
+    tied = _tied_tiles(got_logt, want_logt)
+    if len(tied) and not allow_ties:
+        raise AssertionError(f"K2 {name}: walks differ on tiles {tied}")
+    keep = torch.ones(attrs.shape[0], dtype=torch.bool, device=dev)
+    keep[tied] = False
+    ent = entered(want_logt)[keep]
+    fwd = [_assert_rel(f"K2 {name} {part}", got_out[keep][:, rows],
+                       want_out[keep][:, rows], 1e-5, max_ties)
+           for part, rows in (("rgb", slice(0, 3)), ("alpha", slice(3, 4)),
+                              ("depth", slice(4, 5)))]
+    logt_err, logt_ties = _assert_rel(f"K2 {name} logt", got_logt[keep][ent],
+                                      want_logt[keep][ent], 1e-5, max_ties)
+    if (got_out[:, 5:] != 0).any():
+        raise AssertionError(f"K2 {name}: rows 5..7 of out are not zero")
+
+    want_g = k23.composite_bwd_reference(attrs, want_logt, gout, ntx)
+    got_g = k23.composite_bwd(attrs, got_logt, gout, ntx)
+    torch.cuda.synchronize()
+    bwd = [_assert_rel(f"K3 {name} column {c}", got_g[keep][..., c],
+                       want_g[keep][..., c], 1e-4, max_ties)
+           for c in range(10)]
+    dead = ~entered(got_logt).repeat_interleave(k23.CHUNK, dim=1)
+    if (got_g[..., 10:] != 0).any() or (got_g[dead] != 0).any():
+        raise AssertionError(f"K3 {name}: rows of unentered chunks or "
+                             "columns 10..15 are not zero")
+
+    work = composite_work(attrs, got_logt, ntx)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    recs = []
+    for kname, kernel, plain, bound in (
+            ("K2", lambda: k23.composite_fwd(attrs, nchunks, ntx),
+             lambda: k23.composite_fwd_reference(attrs, nchunks, ntx),
+             k2_bound),
+            ("K3", lambda: k23.composite_bwd(attrs, got_logt, gout, ntx),
+             lambda: k23.composite_bwd_reference(attrs, got_logt, gout, ntx),
+             k3_bound)):
+        bound_ms, bound_by, counts = bound(attrs, got_logt, work)
+        rec = dict(case=name, tiles=attrs.shape[0], K=attrs.shape[1],
+                   chunks_entered=work[0], pairs=work[1], live_pairs=work[2],
+                   tied_tiles=len(tied),
+                   ties=sum(t for _, t in (fwd + [(0, logt_ties)]
+                                           if kname == "K2" else bwd)),
+                   max_abs_err=max(e for e, _ in
+                                   (fwd if kname == "K2" else bwd)),
+                   ms=time_ms(kernel, reps, flush),
+                   ms_warm_l2=time_ms(kernel, reps),
+                   plain_ms=time_ms(plain, 3, flush, queued=False),
+                   bound_ms=bound_ms, bound_by=bound_by, **counts)
+        if kname == "K2":
+            rec["max_abs_err_logt"] = logt_err
+        log(f"{kname} " + json.dumps(rec))
+        recs.append(rec)
+    return recs
+
+
+def k23_parity(device):
+    """K2/K3 on the branch cases at K = 128 and 512: {case: (K2, K3)}."""
+    cases = {}
+    for K in (128, 512):
+        A, nch, ntx = composite_branch_cases(K)
+        cases[f"branches_K{K}"] = k23_case(
+            f"branches_K{K}", torch.as_tensor(A, device=device),
+            torch.as_tensor(nch, device=device), ntx, reps=20)
+    return cases
+
+
+# ------------------------------------------------------------ BA path
+
+def ring_rotation(center):
+    """World->camera rotation of a camera at ``center`` looking at the
+    origin (rows x, y, z)."""
+    z = -center / np.linalg.norm(center)
+    x = np.cross([0, 0, 1.0], z)
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z], 0)
+
 
 def make_scene(num_cams=200, num_pts=50_000, obs_per_pt=8, seed=SEED):
     """Seeded synthetic scene at the ETH3D-indoor shape (as bench.py's
@@ -214,13 +458,7 @@ def make_scene(num_cams=200, num_pts=50_000, obs_per_pt=8, seed=SEED):
     angles = rng.uniform(0, 2 * np.pi, num_cams)
     centers = np.stack([8 * np.cos(angles), 8 * np.sin(angles),
                         rng.uniform(0, 2, num_cams)], -1)
-    Rs = []
-    for c in centers:
-        z = -c / np.linalg.norm(c)
-        x = np.cross([0, 0, 1.0], z)
-        x /= np.linalg.norm(x)
-        Rs.append(np.stack([x, np.cross(z, x), z], 0))
-    Rs = np.asarray(Rs)
+    Rs = np.stack([ring_rotation(c) for c in centers])
     qs = lie.matrix_to_quat(torch.as_tensor(Rs)).numpy()
     ts = -np.einsum("cij,cj->ci", Rs, centers)
     pts = rng.uniform(-2, 2, (num_pts, 3))
@@ -426,6 +664,186 @@ def run_gp_step(device, gt):
     return rec
 
 
+# ------------------------------------------------------------ 3DGS path
+
+def make_gs_scene(root, device, num_pts, num_views, W, H, seed=SEED):
+    """A seeded 3DGS scene on disk: ground-truth gaussians (SH degree 3) in
+    a 4-unit cube, ``num_views`` PINHOLE views on a ring of radius 7
+    rendered by the port's rasterizer (K2) and written as PNG in
+    ``root/images``, and a COLMAP model in ``root/sparse/0`` with
+    ``num_pts`` points: the gaussians' centres and 1% outliers in a shell
+    of radius 3..5 that the photos do not show, as SfM leaves some.  The
+    outliers are sparse, so their initial scales exceed the strategy's
+    prune_scale3d."""
+    rng = np.random.default_rng(seed)
+    n_out = num_pts // 100
+    n_gt = num_pts - n_out
+    pts = rng.uniform(-2, 2, (n_gt, 3))
+    colors = rng.uniform(0.1, 0.9, (n_gt, 3))
+    quats = rng.standard_normal((n_gt, 4))
+    scales = rng.uniform(0.015, 0.05, (n_gt, 3))
+    opac = rng.uniform(0.5, 0.95, n_gt)
+    sh = 0.1 * rng.standard_normal((n_gt, 16, 3))
+    sh[:, 0] = gs_sh.rgb_to_sh(colors)
+    d = rng.standard_normal((n_out, 3))
+    outliers = d / np.linalg.norm(d, axis=1, keepdims=True) \
+        * rng.uniform(3, 5, (n_out, 1))
+    f = 600.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    dev32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    gauss = [dev32(a) for a in (pts, quats, scales, opac, sh)]
+    os.makedirs(os.path.join(root, "images"))
+    images = []
+    for i, ang in enumerate(np.linspace(0, 2 * np.pi, num_views,
+                                        endpoint=False)):
+        c = np.array([7 * np.cos(ang), 7 * np.sin(ang), 1.5])
+        R = ring_rotation(c)
+        view = np.eye(4)
+        view[:3, :3], view[:3, 3] = R, -R @ c
+        with torch.no_grad():
+            out = gs_raster.rasterize(*gauss, dev32(view), dev32(K), width=W,
+                                      height=H, sh_degree=3)
+        img = (torch.clamp(out.rgb, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        name = f"v{i:03d}.png"
+        imwrite(os.path.join(root, "images", name), img)
+        q = lie.matrix_to_quat(torch.as_tensor(R)).numpy()        # xyzw
+        images.append(cmio.ModelImage(
+            i + 1, np.array([q[3], q[0], q[1], q[2]]), -R @ c, 1, name,
+            np.zeros((0, 2)), np.zeros(0, np.int64)))
+    sfm_xyz = np.concatenate([pts, outliers])
+    sfm_rgb = (np.concatenate([colors, rng.uniform(0, 1, (n_out, 3))])
+               * 255).astype(np.uint8)
+    points = [cmio.ModelPoint3D(p + 1, sfm_xyz[p], sfm_rgb[p], 0.0,
+                                np.array([1]), np.array([0]))
+              for p in range(num_pts)]
+    cameras = [cmio.ModelCamera(1, cm.PINHOLE, W, H,
+                                np.array([f, f, W / 2, H / 2]))]
+    cmio.write_model(cameras, images, points, os.path.join(root, "sparse", "0"))
+
+
+def main_shape_tiles(runner, view_index=0):
+    """K2/K3's inputs for one training view of the trained model, as the
+    main path builds them: (attrs, nchunks, ntx)."""
+    sp, cfg = runner.splats, runner.cfg
+    v = runner.trainset[view_index]
+    H, W = v["image"].shape[:2]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                  device=runner.device)
+    with torch.no_grad():
+        p = gs_raster.project_view(
+            sp.means, sp.quats, torch.exp(sp.scales),
+            torch.sigmoid(sp.opacities) * sp.alive,
+            torch.cat([sp.sh0, sp.shN], dim=1),
+            torch.linalg.inv(t(v["camtoworld"])), t(v["K"]), W, H,
+            sh_degree=cfg.sh_degree)
+        return gs_raster.tile_attrs(p, W, H, cfg.tiles_per_gauss,
+                                    cfg.tile_capacity)
+
+
+def profile_gs_step(runner):
+    """Device time by kernel over one training step of the trained model."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    views = runner._views(np.random.default_rng(1))
+    sh_degree = runner.cfg.sh_degree
+    for _ in range(2):
+        runner._train_step(views, sh_degree)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner._train_step(views, sh_degree)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "gs_step_trace.json"))
+    log("GS_PROFILE " + json.dumps(dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=1 - busy_ms / wall_ms,
+        top=[dict(us=us, n=n, name=name[:80]) for us, n, name in rows[:15]])))
+
+
+def run_gs(device, profile=False):
+    """Train 3DGS through ``Runner`` on the card; returns (GS record,
+    one view's compositing inputs at the main shape)."""
+    with tempfile.TemporaryDirectory(prefix="gs_smoke_") as root:
+        t0 = time.perf_counter()
+        make_gs_scene(root, device, GS_POINTS, GS_VIEWS, GS_W, GS_H)
+        scene_s = time.perf_counter() - t0
+        cfg = GSConfig(data_dir=root, result_dir=os.path.join(root, "results"),
+                       max_steps=GS_STEPS, test_every=8, capacity_mult=4.0,
+                       sh_degree=3, sh_degree_interval=2, tile_capacity=512,
+                       tiles_per_gauss=16, eval_steps=(), save_steps=())
+        t0 = time.perf_counter()
+        runner = Runner(cfg, log=lambda *a: None, device=device)
+        setup_s = time.perf_counter() - t0
+        # refine at steps 10, 20, 30, opacity reset at 25: prune_too_big
+        # needs a refine after the first reset (step > reset_every); the
+        # outliers' scales make it prune at step 30
+        runner.strategy_cfg = gs_strategy.StrategyConfig(
+            refine_start_iter=10, refine_every=10, reset_every=GS_RESET_EVERY)
+        alive0 = int(runner.splats.alive.sum())
+
+        torch.cuda.synchronize()
+        k1.schur_wchain.launches = 0
+        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+        t0 = time.perf_counter()
+        losses = runner.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+
+        t0 = time.perf_counter()
+        stats = runner.eval(GS_STEPS)
+        eval_s = time.perf_counter() - t0
+        ckpt = runner.save_checkpoint(GS_STEPS)
+        ckpt_alive = int(np.load(ckpt)["alive"].sum())
+        tiles = main_shape_tiles(runner)
+        if profile:
+            profile_gs_step(runner)
+
+    step_ms = [s * 1e3 for s in runner.step_s]
+    rec = dict(sfm_points=GS_POINTS, views=GS_VIEWS, width=GS_W, height=GS_H,
+               train_views=len(runner.trainset), val_views=len(runner.valset),
+               capacity=int(runner.splats.alive.shape[0]), steps=GS_STEPS,
+               scene_s=scene_s, setup_s=setup_s, train_s=train_s,
+               eval_s=eval_s, first_step_ms=step_ms[0],
+               median_later_step_ms=float(np.median(step_ms[1:])),
+               step_ms=step_ms, loss_first=losses[0], loss_last=losses[-1],
+               losses=losses, psnr=stats["psnr"], ssim=stats["ssim"],
+               alive_init=alive0, refines=runner.refines,
+               alive_final=stats["num_GS"], k2_launches=k2n, k3_launches=k3n,
+               k1_launches=k1.schur_wchain.launches)
+    log("GS " + json.dumps(rec))
+    steps = GS_STEPS * cfg.batch_size
+    checks = {
+        "losses finite": bool(np.all(np.isfinite(losses))),
+        # the opacity reset raises the loss; it falls before the reset and
+        # again after it
+        "loss falls before the reset":
+            np.mean(losses[GS_RESET_EVERY - 5:GS_RESET_EVERY])
+            < np.mean(losses[:5]),
+        "loss falls after the reset":
+            np.mean(losses[-5:])
+            < np.mean(losses[GS_RESET_EVERY + 1:GS_RESET_EVERY + 6]),
+        "three refines, alive count changed":
+            len(runner.refines) == 3 and any(
+                r["alive_after"] != r["alive_before"] for r in runner.refines),
+        "K2 and K3 launched once per view per step": k2n == k3n == steps,
+        "val PSNR finite": math.isfinite(stats["psnr"]),
+        "checkpoint holds the pool": ckpt_alive == stats["num_GS"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"3DGS main path failed: {failed}")
+    return rec, tiles
+
+
 def profile_ba_step(device):
     """Device time by kernel over one BA LM step at the main-path shape."""
     from torch.autograd import DeviceType
@@ -478,10 +896,57 @@ def profile_ba_step(device):
     log("PROFILE " + json.dumps(rec))
 
 
+def kernel_entry(name, source, replaces, launches, case, **extra):
+    """One kernel's record in the kernels line, from its main-shape case."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=case["max_abs_err"],
+                ms=case["ms"], ms_warm_l2=case["ms_warm_l2"],
+                plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                bound_by=case["bound_by"], library_ms=None,
+                build_s=build.BUILD_INFO[os.path.basename(source)[:-len(".cu")]]
+                ["seconds"], **extra)
+
+
+def k1_entry(cases, ba_rec, gp_rec):
+    main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
+                     and c["dtype"] == "float32")
+    f32_cases = [c for c in cases if c["dtype"] == "float32"]
+    return kernel_entry(
+        "schur_wchain", "instantsfm_tpu_torch/csrc/schur_wchain.cu",
+        "instantsfm_tpu/solve/pallas_schur.py:145", ba_rec["k1_launches"],
+        main_case,
+        replaces_fn="instantsfm_tpu/solve/pallas_schur.py::schur_wchain",
+        launches_gp_step=gp_rec["k1_launches"],
+        max_err_f32=max(c["max_abs_err"] for c in f32_cases),
+        max_rel_err_f32=max(c["max_abs_err"] / c["max_abs_u"]
+                            for c in f32_cases))
+
+
+def k2_entry(main_case, branch_cases, gs_rec):
+    return kernel_entry(
+        "composite_fwd", "instantsfm_tpu_torch/csrc/composite_tiles.cu",
+        "instantsfm_tpu/gs/pallas_raster.py:240", gs_rec["k2_launches"],
+        main_case,
+        replaces_fn="instantsfm_tpu/gs/pallas_raster.py::_composite_fwd_raw",
+        max_abs_err_branches=max(c[0]["max_abs_err"]
+                                 for c in branch_cases.values()))
+
+
+def k3_entry(main_case, branch_cases, gs_rec):
+    return kernel_entry(
+        "composite_bwd", "instantsfm_tpu_torch/csrc/composite_tiles.cu",
+        "instantsfm_tpu/gs/pallas_raster.py:274", gs_rec["k3_launches"],
+        main_case,
+        replaces_fn="instantsfm_tpu/gs/pallas_raster.py::_composite_vjp_bwd",
+        max_abs_err_branches=max(c[1]["max_abs_err"]
+                                 for c in branch_cases.values()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one BA LM step (torch.profiler)")
+                    help="also profile one BA LM step and one 3DGS training "
+                         "step (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -497,15 +962,16 @@ def main(argv=None):
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    build.build_all(["schur_wchain"])
+    build.build_all(["schur_wchain", "composite_tiles"])
     build_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.txt"), "w") as f:
         for name, info in build.BUILD_INFO.items():
             f.write(f"== {name} ({info['seconds']:.1f} s)\n{info['log']}\n")
-    log(f"build: {build_s:.1f} s (nvcc, sm_90a)")
+    log(f"build: {build_s:.1f} s (nvcc, sm_90a, sources built in parallel)")
 
-    cases = kernel_parity(device)
+    k1_cases = k1_parity(device)
+    k23_branches = k23_parity(device)
     # one-time cost of the process's first vmap(jacfwd) call, timed apart
     # from the BA stage: an add under it runs torch._refs.add, whose first
     # call imports torch._dynamo (and sympy, torch.distributed.tensor)
@@ -521,24 +987,12 @@ def main(argv=None):
     gp_rec = run_gp_step(device, gt)
     if args.profile:
         profile_ba_step(device)
+    gs_rec, tiles = run_gs(device, profile=args.profile)
+    k2_main, k3_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
-    main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
-                     and c["dtype"] == "float32")
-    f32_cases = [c for c in cases if c["dtype"] == "float32"]
-    kernels = [dict(
-        name="schur_wchain", route="cuda",
-        source="instantsfm_tpu_torch/csrc/schur_wchain.cu",
-        replaces="instantsfm_tpu/solve/pallas_schur.py:145",
-        replaces_fn="instantsfm_tpu/solve/pallas_schur.py::schur_wchain",
-        launches=ba_rec["k1_launches"], launches_gp_step=gp_rec["k1_launches"],
-        max_abs_err=main_case["max_abs_err"],
-        max_err_f32=max(c["max_abs_err"] for c in f32_cases),
-        max_rel_err_f32=max(c["max_abs_err"] / c["max_abs_u"]
-                            for c in f32_cases),
-        ms=main_case["ms"], ms_warm_l2=main_case["ms_warm_l2"],
-        plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=None, build_s=build_s)]
+    kernels = [k1_entry(k1_cases, ba_rec, gp_rec),
+               k2_entry(k2_main, k23_branches, gs_rec),
+               k3_entry(k3_main, k23_branches, gs_rec)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
 as numpy arrays (any object with the same field names, e.g. the JAX
 NamedTuples after ``np.asarray`` on every leaf) into this port's tensors on
 ``device``; ``to_numpy`` maps the port's tensors back to numpy.
+``splats_from_numpy``/``splats_to_numpy`` do the same for the 3DGS
+``Splats``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from instantsfm_tpu_torch.gs.splats import FIELDS, Splats
 from instantsfm_tpu_torch.solve.block_lm import Observations, Params
 from instantsfm_tpu_torch.utils.device import resolve_device
 
@@ -50,3 +53,20 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree
+
+
+def splats_from_numpy(splats_np, device="cuda") -> Splats:
+    """Any object with the ``Splats`` field names (e.g. the JAX ``Splats``
+    after ``np.asarray`` on every leaf) -> the port's ``Splats`` on
+    ``device``: float fields float32, ``alive`` bool."""
+    dev = resolve_device(device)
+    get = (splats_np.get if isinstance(splats_np, dict)
+           else lambda f: getattr(splats_np, f))
+    return Splats(**{
+        f: torch.tensor(np.asarray(get(f), bool if f == "alive" else np.float32),
+                        device=dev) for f in FIELDS})
+
+
+def splats_to_numpy(splats: Splats) -> dict:
+    """The port's ``Splats`` -> {field: numpy array}."""
+    return {f: getattr(splats, f).detach().cpu().numpy() for f in FIELDS}

@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain torch
-versions, and the BA stage on the card against the same stage on the CPU.
+versions, and the BA stage and the 3DGS render and training path on the
+card against the same code on the CPU.
 
 This file imports neither JAX nor the JAX package, so on the card machine
 (which has no JAX) it runs without the suite's conftest:
@@ -8,12 +9,15 @@ This file imports neither JAX nor the JAX package, so on the card machine
 
 Without a card each test skips.  Tolerances: float64 rtol 1e-10 (the kernel
 sums each track by a butterfly, the plain version by a reshape-sum); float32
-rtol 1e-4 with atol 1e-5 * max|u| (float32 sums of up to 2048 products)."""
+rtol 1e-4 with atol 1e-5 * max|u| (float32 sums of up to 2048 products).
+K2/K3 (float32 only): rel 1e-5 of each output's max and 1e-4 of each
+gradient column's max (sums in other orders, FMA contraction)."""
 
 import numpy as np
 import pytest
 import torch
 
+from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import bucketize
 
@@ -105,3 +109,112 @@ def test_bundle_adjustment_rounds_card_matches_cpu():
     assert all(abs(a - b) <= 1 for a, b in zip(it_c, it_g)), (it_c, it_g)
     np.testing.assert_allclose(img_g.qvec, img_c.qvec, atol=1e-6)
     np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=1e-6)
+
+
+def _rel_close(got, want, rel):
+    scale = max(want.abs().max().item(), 1e-30)
+    torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [128, 512])
+def test_composite_kernels_match_reference(K):
+    """K2 and K3 against their plain versions on tiles that reach every
+    branch: empty, early exit, all chunks, sigma <= 0, clipped alpha."""
+    _need_card()
+    import chip_smoke
+    A, nch, ntx = chip_smoke.composite_branch_cases(K)
+    attrs = torch.tensor(A, device="cuda")
+    nchunks = torch.tensor(nch, device="cuda")
+    gout = torch.randn((A.shape[0], 8, 256), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+    want_out, want_logt = k23.composite_fwd_reference(attrs, nchunks, ntx)
+    f0, b0 = k23.composite_fwd.launches, k23.composite_bwd.launches
+    got_out, got_logt = k23.composite_fwd(attrs, nchunks, ntx)
+    got_g = k23.composite_bwd(attrs, got_logt, gout, ntx)
+    torch.cuda.synchronize()
+    assert (k23.composite_fwd.launches, k23.composite_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    ent = want_logt.amax(2) > -1e29
+    assert torch.equal(got_logt.amax(2) > -1e29, ent)
+    assert ent[1].sum() == (1 if K > 128 else K // 128)     # early exit
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 5)):
+        _rel_close(got_out[:, rows], want_out[:, rows], 1e-5)
+    _rel_close(got_logt[ent], want_logt[ent], 1e-5)
+    assert (got_out[:, 5:] == 0).all() and (got_out[0, :3] == 0).all()
+    want_g = k23.composite_bwd_reference(attrs, want_logt, gout, ntx)
+    for c in range(10):
+        _rel_close(got_g[..., c], want_g[..., c], 1e-4)
+    assert (got_g[..., 10:] == 0).all()
+    assert (got_g[~ent.repeat_interleave(128, dim=1)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_composite_kernels_reject_bad_inputs():
+    _need_card()
+    import chip_smoke
+    A, nch, ntx = chip_smoke.composite_branch_cases(128)
+    attrs = torch.tensor(A, device="cuda")
+    nchunks = torch.tensor(nch, device="cuda")
+    with pytest.raises(TypeError):
+        k23.composite_fwd(attrs.double(), nchunks, ntx)
+    with pytest.raises(ValueError):
+        k23.composite_fwd(attrs[:, :100], nchunks, ntx)
+    with pytest.raises(TypeError):
+        k23.composite_fwd(attrs, nchunks.long(), ntx)
+    _, logt = k23.composite_fwd(attrs, nchunks, ntx)
+    with pytest.raises(TypeError):
+        k23.composite_bwd(attrs, logt, torch.zeros((6, 5, 256),
+                                                   device="cuda"), ntx)
+
+
+@pytest.mark.cuda
+def test_rasterize_card_matches_cpu():
+    """The whole render and its gradients (float32): K2/K3 and the CUDA
+    sort/gather on the card against the plain path on the CPU."""
+    _need_card()
+    from instantsfm_tpu_torch.gs import rasterize
+
+    rng = np.random.default_rng(0)
+    G, W, H = 300, 128, 96
+    means = rng.uniform([-1, -1, 3], [1, 1, 6], (G, 3))
+    quats = rng.standard_normal((G, 4))
+    scales = rng.uniform(0.02, 0.12, (G, 3))
+    opac = rng.uniform(0.3, 0.95, G)
+    sh = rng.standard_normal((G, 16, 3)) * 0.3
+    K = np.array([[120.0, 0, 64], [0, 120.0, 48], [0, 0, 1]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        args = [t(a).requires_grad_(True) for a in (means, scales, opac, sh)]
+        r = rasterize.rasterize(args[0], t(quats), args[1], args[2], args[3],
+                                t(np.eye(4)), t(K), width=W, height=H,
+                                sh_degree=3)
+        (r.rgb.square().mean() + r.alpha.mean() + 0.1 * r.depth.mean()
+         ).backward()
+        out[dev] = [r.rgb, r.alpha, r.depth] + [a.grad for a in args]
+    for c, g in zip(out["cpu"], out["cuda"]):
+        _rel_close(g.cpu(), c, 1e-4)
+
+
+@pytest.mark.cuda
+def test_gs_runner_card_matches_cpu(tmp_path):
+    """Three training steps of Runner on the card against the CPU, on a
+    small scene: per-step losses within rel 1e-4."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+
+    chip_smoke.make_gs_scene(str(tmp_path), "cpu", 600, 6, 96, 72)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        cfg = GSConfig(data_dir=str(tmp_path),
+                       result_dir=str(tmp_path / f"out_{dev}"), max_steps=3,
+                       test_every=3, sh_degree=1, sh_degree_interval=1,
+                       tile_capacity=128, eval_steps=(), save_steps=(),
+                       capacity_mult=2.0)
+        f0 = k23.composite_fwd.launches
+        losses[dev] = Runner(cfg, log=lambda *a: None, device=dev).train()
+        launched = k23.composite_fwd.launches - f0
+    assert launched == 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
