@@ -3,7 +3,9 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # the check
-    python3 chip_smoke.py --profile  # also profile one BA LM step
+    python3 chip_smoke.py --profile  # also profile one BA LM and 3DGS step
+    python3 chip_smoke.py --baseline-k23 OLD.cu   # also time another build
+                                     # of csrc/composite_tiles.cu beside it
 
 Phases (any failure exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
@@ -11,7 +13,8 @@ Phases (any failure exits non-zero):
      source, all started together (timed);
   3. kernel parity: each kernel against its plain torch version on the card
      (K1 at the shapes the solvers give it, float32 and float64; K2/K3 on
-     hand-built tiles that reach every branch), with timings (CUDA events)
+     hand-built tiles that reach every branch and on tiles whose gaussians
+     sit on the edges of the kernels' cull), with timings (CUDA events)
      and the analytic memory/arithmetic bound;
   4. BA path: ``pipeline.ba.bundle_adjustment_rounds`` (3 rounds, float32)
      on a seeded synthetic scene at the ETH3D-indoor shape (200 images, 50k
@@ -25,13 +28,14 @@ Phases (any failure exits non-zero):
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3.  K2/K3 are then held against their plain versions on one
-     view's real tiles;
+     view's real tiles (and, with --baseline-k23, against the other build);
   6. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -269,24 +273,162 @@ def composite_branch_cases(K, seed=SEED):
     return A, nch, ntx
 
 
+def composite_cull_cases(K, seed=SEED):
+    """Hand-built tiles (ntx = 3) whose gaussians sit on the edges of the
+    kernels' cull (``k23.cull_boxes``): 0 axis-aligned ellipses whose
+    alpha = 1/255 contour is tangent (within 2e-3 px) to the borders between
+    the warps' 16x2 rectangles, to their first and last rows of pixel
+    centres, and to the tile's outer columns; 1 thin rotated conics with
+    |b| just under sqrt(ac), det / (a + c)^2 from about 1e-5 to 1e-2, on
+    both sides of the det test; 2 opacities at, just above and well above
+    1/255, and at, around and above the 0.999 clip; 3 conics that are not
+    positive definite (negative, indefinite, zero) among ordinary rows;
+    4 means far outside the tile (1e2 to 1e6 px), large enough to reach it
+    or not; 5 means on pixel centres, where sigma = 0 exactly.  Offsets stay clear of the
+    float ties of the alpha threshold, so every implementation of the alpha
+    terms takes the same side.  Returns numpy (attrs [6, K, 16] f32,
+    nchunks [6] int32, ntx)."""
+    rng = np.random.default_rng(seed + 7)
+    ntx, n = 3, 6
+    A = np.zeros((n, K, k23.ATTR), np.float32)
+    nch = np.zeros(n, np.int32)
+    f32 = np.float32
+    kmin = f32(1 / 255)
+
+    def put(t, rows, mx, my, conic, opac):
+        A[t, :rows, 0], A[t, :rows, 1] = mx, my
+        A[t, :rows, 2], A[t, :rows, 3], A[t, :rows, 4] = conic
+        A[t, :rows, 5:8] = rng.uniform(0, 1, (rows, 3))
+        A[t, :rows, 8] = opac
+        A[t, :rows, 9] = np.sort(rng.uniform(1, 9, rows))
+        nch[t] = -(-rows // k23.CHUNK)
+
+    def reach(op):
+        """sqrt(s), s = 2 ln(255 op): a unit gaussian's contour radius."""
+        return np.sqrt(2 * np.log(255 * op.astype(np.float64)))
+
+    R = min(K, 384)
+    for t in range(n):
+        ox, oy = (t % ntx) * 16, (t // ntx) * 16
+        if t == 0:
+            sx, sy = rng.uniform(0.8, 4, R), rng.uniform(0.8, 4, R)
+            op = rng.uniform(0.05, 0.4, R)
+            rx, ry = sx * reach(op), sy * reach(op)
+            w = rng.integers(0, 8, R)
+            # a y edge: warp border, first or last pixel-centre row
+            ye = oy + 2 * w + rng.choice([0.0, 0.5, 1.5], R)
+            xe = ox + rng.choice([0.0, 0.5, 15.5, 16.0], R)
+            d = rng.choice([-2e-3, 2e-3], R)
+            side = rng.choice([-1, 1], R)
+            on_y = rng.uniform(size=R) < 0.6
+            my = np.where(on_y, ye + d + side * ry, oy + rng.uniform(0, 16, R))
+            mx = np.where(on_y, ox + rng.uniform(0, 16, R),
+                          xe + d + side * rx)
+            put(t, R, mx, my, (1 / sx ** 2, np.zeros(R), 1 / sy ** 2), op)
+        elif t == 1:
+            # integer conics (A, B, C < 512) times 2^-p with B just under
+            # sqrt(AC): half with C = ceil((B^2 + 1) / A), det = AC - B^2 in
+            # [1, A], the others with B = 0.9..0.999 sqrt(AC); means on a
+            # quarter-pixel grid within 7 px of the tile (|4 dx| <= 90).
+            # Every product and partial sum of sigma is then an integer
+            # under 2^24 times 2^-p-4, exact in float32, so FMA contraction
+            # or another order gives the same sigma
+            tight = rng.uniform(size=R) < 0.5
+            A_ = np.where(tight, rng.integers(16, 97, R),
+                          rng.integers(32, 512, R))
+            b_max = np.floor(np.sqrt(511 * A_ - 1)).astype(np.int64)
+            b_tight = rng.integers(np.floor(np.sqrt(64 * A_)).astype(np.int64),
+                                   b_max + 1)
+            c_loose = rng.integers(32, 512, R)
+            B_ = np.where(tight, b_tight, np.floor(
+                np.sqrt(A_ * c_loose) * rng.choice([0.9, 0.99, 0.999], R)))
+            C_ = np.where(tight, -(-(b_tight ** 2 + 1) // A_), c_loose)
+            scale = 2.0 ** rng.integers(-10, -3, R)
+            put(t, R, ox + rng.integers(-28, 93, R) / 4,
+                oy + rng.integers(-28, 93, R) / 4,
+                (A_ * scale, rng.choice([-1, 1], R) * B_ * scale, C_ * scale),
+                rng.uniform(0.1, 0.9, R))
+        elif t == 2:
+            ops = np.array([kmin, np.nextafter(kmin, f32(1)),
+                            kmin * f32(1 + 1e-5), kmin * f32(1 + 1e-3),
+                            f32(0.02), np.nextafter(f32(0.999), f32(0)),
+                            f32(0.999), np.nextafter(f32(0.999), f32(1)),
+                            f32(1.0)], np.float32)
+            op = ops[rng.integers(0, len(ops), R)]
+            # means on, near (1e-3 px) and away from pixel centres
+            cx = ox + rng.integers(0, 16, R) + 0.5
+            cy = oy + rng.integers(0, 16, R) + 0.5
+            off = rng.choice([0.0, 1e-3, 0.25], R)[:, None] * \
+                rng.choice([-1, 1], (R, 2))
+            s = rng.uniform(0.5, 3, R)
+            put(t, R, cx + off[:, 0], cy + off[:, 1],
+                (1 / s ** 2, rng.uniform(-0.2, 0.2, R) / s ** 2, 1 / s ** 2),
+                op)
+        elif t == 3:
+            kind = rng.integers(0, 5, R)            # 0, 1: ordinary rows
+            # wider for the others, so that e = exp(-sigma/2) stays finite
+            s = np.where(kind < 2, rng.uniform(1, 5, R), rng.uniform(3.5, 8, R))
+            a, b, c = 1 / s ** 2, rng.uniform(-0.3, 0.3, R) / s ** 2, 1 / s ** 2
+            a = np.where(kind == 2, -a, a)          # negative a
+            c = np.where(kind == 3, -c, c)          # indefinite
+            b = np.where(kind == 4, 2 * np.sqrt(np.abs(a * c)), b)   # det < 0
+            zero = rng.uniform(size=R) < 0.05       # a = b = c = 0
+            a, b, c = (np.where(zero, 0.0, v) for v in (a, b, c))
+            put(t, R, ox + rng.uniform(-4, 20, R), oy + rng.uniform(-4, 20, R),
+                (a, b, c), rng.uniform(0.05, 0.6, R))
+        elif t == 4:
+            dist = rng.choice([1e2, 1e3, 1e4, 1e6], R)
+            ang = rng.uniform(0, 2 * np.pi, R)
+            # sigma in pixels: some reach the tile (just), some do not
+            sig = dist * rng.uniform(0.2, 0.6, R)
+            put(t, R, ox + 8 + dist * np.cos(ang), oy + 8 + dist * np.sin(ang),
+                (1 / sig ** 2, np.zeros(R), 1 / sig ** 2),
+                rng.uniform(0.05, 0.5, R))
+        else:
+            s = rng.uniform(0.7, 4, R)
+            centred = rng.uniform(size=R) < 0.7
+            mx = np.where(centred, ox + rng.integers(0, 16, R) + 0.5,
+                          ox + rng.uniform(-4, 20, R))
+            my = np.where(centred, oy + rng.integers(0, 16, R) + 0.5,
+                          oy + rng.uniform(-4, 20, R))
+            put(t, R, mx, my,
+                (1 / s ** 2, rng.uniform(-0.2, 0.2, R) / s ** 2, 1 / s ** 2),
+                rng.uniform(0.05, 0.5, R))
+    return A, nch, ntx
+
+
 def entered(logt):
     """[n, K/128] bool: the chunks K2's walk entered."""
     return logt.amax(dim=2) > 0.5 * k23.NOT_RUN
 
 
 def composite_work(attrs, logt, ntx):
-    """(entered chunks, (gaussian, pixel) pairs in them, pairs whose alpha
-    is live): what K2/K3 must evaluate on these inputs."""
+    """What K2/K3 must do on these inputs: the entered chunks, the
+    (gaussian, pixel) pairs in them, the (row, warp) pairs the cull keeps
+    and the pairs those hold (32 each), the (row, warp) pairs where some
+    pixel's alpha is live, and the live pairs.  Raises if the cull would
+    skip a live pair (``k23.cull_rows``, the kernels' record)."""
     t_idx, c_idx = entered(logt).nonzero(as_tuple=True)
     px, py = k23.pixel_coords(attrs.shape[0], ntx, attrs.device)
     rows = torch.arange(k23.CHUNK, device=attrs.device)
-    live = 0
+    kept_all = k23.cull_rows(attrs, ntx)                     # [n, K, NWARP]
+    kept = live_rows = live = 0
     for lo in range(0, len(t_idx), 256):
         t, c = t_idx[lo:lo + 256], c_idx[lo:lo + 256]
-        a = attrs[t[:, None], c[:, None] * k23.CHUNK + rows[None, :]]
-        live += int((k23.alpha_terms(a, px[t], py[t])[0] > 0).sum())
+        r = c[:, None] * k23.CHUNK + rows[None, :]
+        alive = k23.alpha_terms(attrs[t[:, None], r], px[t], py[t])[0] > 0
+        alive_w = alive.view(len(t), k23.CHUNK, k23.NWARP, 32).any(dim=-1)
+        kw = kept_all[t[:, None], r]
+        if (alive_w & ~kw).any():
+            raise AssertionError("the cull skips a live (gaussian, pixel) "
+                                 "pair")
+        kept += int(kw.sum())
+        live_rows += int(alive_w.sum())
+        live += int(alive.sum())
     E = len(t_idx)
-    return E, E * k23.CHUNK * k23.P, live
+    return dict(chunks_entered=E, pairs=E * k23.CHUNK * k23.P,
+                warp_rows_kept=kept, pairs_after_cull=32 * kept,
+                live_warp_rows=live_rows, live_pairs=live)
 
 
 def _bound(nbytes, flops, sfu):
@@ -301,30 +443,55 @@ def _bound(nbytes, flops, sfu):
                  bytes_ms=t_b * 1e3, fp32_ms=t_f * 1e3, sfu_ms=t_s * 1e3))
 
 
-def k2_bound(attrs, logt, work):
-    """K2: the entered chunks' attrs and nchunks read once, out and logt
-    written once; per (gaussian, pixel) pair of an entered chunk 16 FP32
-    operations (offsets, the conic form, exp argument, opacity, clip and
-    the two tests) and one exp, per live pair 12 more (weight, colour and
-    depth sums, prefix) plus a log1p and an exp."""
-    n, K, A = attrs.shape
-    E, pairs, live = work
-    nbytes = 4 * (E * k23.CHUNK * A + n + n * 8 * k23.P
-                  + n * (K // k23.CHUNK) * k23.P)
-    return _bound(nbytes, 16 * pairs + 12 * live, pairs + 2 * live)
+# Work units of K2/K3 (FP32 operations, special-function results):
+# the cull record of a row (det, trace, s and its margin, two half-extents
+# with theirs, the box, the rules; a log, two divisions, two square roots),
+# one box test per (row, warp) (four compares, three ors), the alpha terms
+# of a pair (offsets, the conic form, exp argument, opacity, clip, the two
+# tests; an exp).
+RECORD_WORK = (30, 5)
+TEST_WORK = 7
+ALPHA_WORK = (16, 1)
+# per live pair: K2's weight, colour and depth sums and prefix (a log1p and
+# an exp); K3's prefix and T, 51 for the gradient terms and their pixel
+# sums (a log1p, an exp and a reciprocal)
+LIVE_WORK = {"K2": (12, 2), "K3": (54, 3)}
 
 
-def k3_bound(attrs, logt, work):
-    """K3: the entered chunks' attrs, the 5 live rows of gout and logt read
-    once, all of g_attrs written once; per pair of an entered chunk the 16
-    FP32 operations and the exp of the alpha terms, per live pair 3 for the
-    prefix and T, 51 for the gradient terms and their pixel sums, a log1p,
-    an exp and a reciprocal."""
+def k23_bytes(kname, attrs, work):
+    """The entered chunks' attrs read once; K2 reads nchunks and writes out
+    and logt once, K3 reads the 5 live rows of gout and logt and writes all
+    of g_attrs once."""
     n, K, A = attrs.shape
-    E, pairs, live = work
-    nbytes = 4 * (E * k23.CHUNK * A + n * 5 * k23.P
-                  + n * (K // k23.CHUNK) * k23.P + n * K * A)
-    return _bound(nbytes, 16 * pairs + 54 * live, pairs + 3 * live)
+    inputs = 4 * work["chunks_entered"] * k23.CHUNK * A
+    logt = 4 * n * (K // k23.CHUNK) * k23.P
+    if kname == "K2":
+        return inputs + 4 * n + 4 * n * 8 * k23.P + logt
+    return inputs + 4 * n * 5 * k23.P + logt + 4 * n * K * A
+
+
+def k23_bound(kname, attrs, work):
+    """What the redesigned kernel must do: a cull record per row of an
+    entered chunk, a box test per (row, warp), the alpha terms per pair the
+    cull keeps, and the live pairs' work."""
+    rows = work["chunks_entered"] * k23.CHUNK
+    kept = work["pairs_after_cull"]
+    live_ops, live_sfu = LIVE_WORK[kname]
+    flops = (RECORD_WORK[0] * rows + TEST_WORK * rows * k23.NWARP
+             + ALPHA_WORK[0] * kept + live_ops * work["live_pairs"])
+    sfu = (RECORD_WORK[1] * rows + ALPHA_WORK[1] * kept
+           + live_sfu * work["live_pairs"])
+    return _bound(k23_bytes(kname, attrs, work), flops, sfu)
+
+
+def k23_bound_all_pairs(kname, attrs, work):
+    """The bound without a cull (the first port's count): the alpha terms
+    of every pair of an entered chunk, and the live pairs' work."""
+    pairs = work["pairs"]
+    live_ops, live_sfu = LIVE_WORK[kname]
+    return _bound(k23_bytes(kname, attrs, work),
+                  ALPHA_WORK[0] * pairs + live_ops * work["live_pairs"],
+                  ALPHA_WORK[1] * pairs + live_sfu * work["live_pairs"])
 
 
 def _tied_tiles(logt_a, logt_b):
@@ -342,24 +509,37 @@ def _tied_tiles(logt_a, logt_b):
     return tiles
 
 
-def _assert_rel(name, got, want, rel, max_ties=0):
-    """|got - want| <= rel * max|want| elementwise, except for at most
-    ``max_ties`` elements (see ``k23_case``).  Returns (max abs error of
-    the others, number of elements beyond the tolerance)."""
-    scale = max(want.abs().max().item(), 1e-30)
+def _assert_rel(name, got, want, rel, max_ties=0, per_tile=False):
+    """|got - want| <= rel * max|want| elementwise, the max taken over the
+    whole tensor or, with ``per_tile``, over each tile (dim 0) apart;
+    except for at most ``max_ties`` elements (see ``k23_case``).  Returns
+    (max abs error of the others, number of elements beyond the tolerance,
+    max of error / scale of the others)."""
+    if per_tile:
+        scale = want.abs().reshape(len(want), -1).amax(dim=1).view(
+            (-1,) + (1,) * (want.dim() - 1))
+    else:
+        scale = want.abs().max()
+    scale = scale.clamp(min=1e-30)
     err = (got - want).abs()
     bad = ~(err <= rel * scale)
     n_bad = int(bad.sum())
     if n_bad > max_ties or not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: {n_bad} elements beyond {rel} * "
-                             f"{scale}, max abs err {err.max().item()}")
-    return err[~bad].max().item() if n_bad < err.numel() else 0.0, n_bad
+        raise AssertionError(f"{name}: {n_bad} elements beyond {rel} of the "
+                             f"max, max abs err {err.max().item()}")
+    if n_bad == err.numel():
+        return 0.0, n_bad, 0.0
+    return (err[~bad].max().item(), n_bad,
+            (err / scale)[~bad].max().item())
 
 
-def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False):
+def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False,
+             per_tile=False):
     """K2 and K3 against their plain versions on the card, timed.
     Tolerances (float32, sums in other orders): rel 1e-5 of each output row
-    group's max for K2, 1e-4 of each gradient column's max for K3.  The
+    group's max for K2, 1e-4 of each gradient column's max for K3; with
+    ``per_tile`` each max is taken over each tile apart (tiles of unlike
+    scales: the conic gradients of a gaussian 1e6 px away reach 1e11).  The
     kernels evaluate the alpha terms with the plain version's roundings, so
     both take the same side of each threshold; with ``allow_ties`` (a real
     view's tiles) a tile whose exit vote is a float tie is set apart, and
@@ -378,11 +558,12 @@ def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False):
     keep[tied] = False
     ent = entered(want_logt)[keep]
     fwd = [_assert_rel(f"K2 {name} {part}", got_out[keep][:, rows],
-                       want_out[keep][:, rows], 1e-5, max_ties)
+                       want_out[keep][:, rows], 1e-5, max_ties, per_tile)
            for part, rows in (("rgb", slice(0, 3)), ("alpha", slice(3, 4)),
                               ("depth", slice(4, 5)))]
-    logt_err, logt_ties = _assert_rel(f"K2 {name} logt", got_logt[keep][ent],
-                                      want_logt[keep][ent], 1e-5, max_ties)
+    logt_err, logt_ties, _ = _assert_rel(
+        f"K2 {name} logt", got_logt[keep][ent], want_logt[keep][ent], 1e-5,
+        max_ties)
     if (got_out[:, 5:] != 0).any():
         raise AssertionError(f"K2 {name}: rows 5..7 of out are not zero")
 
@@ -390,7 +571,7 @@ def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False):
     got_g = k23.composite_bwd(attrs, got_logt, gout, ntx)
     torch.cuda.synchronize()
     bwd = [_assert_rel(f"K3 {name} column {c}", got_g[keep][..., c],
-                       want_g[keep][..., c], 1e-4, max_ties)
+                       want_g[keep][..., c], 1e-4, max_ties, per_tile)
            for c in range(10)]
     dead = ~entered(got_logt).repeat_interleave(k23.CHUNK, dim=1)
     if (got_g[..., 10:] != 0).any() or (got_g[dead] != 0).any():
@@ -400,41 +581,115 @@ def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False):
     work = composite_work(attrs, got_logt, ntx)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     recs = []
-    for kname, kernel, plain, bound in (
+    for kname, kernel, plain in (
             ("K2", lambda: k23.composite_fwd(attrs, nchunks, ntx),
-             lambda: k23.composite_fwd_reference(attrs, nchunks, ntx),
-             k2_bound),
+             lambda: k23.composite_fwd_reference(attrs, nchunks, ntx)),
             ("K3", lambda: k23.composite_bwd(attrs, got_logt, gout, ntx),
-             lambda: k23.composite_bwd_reference(attrs, got_logt, gout, ntx),
-             k3_bound)):
-        bound_ms, bound_by, counts = bound(attrs, got_logt, work)
+             lambda: k23.composite_bwd_reference(attrs, got_logt, gout, ntx))):
+        bound_ms, bound_by, counts = k23_bound(kname, attrs, work)
         rec = dict(case=name, tiles=attrs.shape[0], K=attrs.shape[1],
-                   chunks_entered=work[0], pairs=work[1], live_pairs=work[2],
-                   tied_tiles=len(tied),
-                   ties=sum(t for _, t in (fwd + [(0, logt_ties)]
-                                           if kname == "K2" else bwd)),
-                   max_abs_err=max(e for e, _ in
+                   **work, tied_tiles=len(tied),
+                   ties=sum(t for _, t, _ in (fwd + [(0, logt_ties, 0)]
+                                              if kname == "K2" else bwd)),
+                   max_abs_err=max(e for e, _, _ in
+                                   (fwd if kname == "K2" else bwd)),
+                   max_rel_err=max(r for _, _, r in
                                    (fwd if kname == "K2" else bwd)),
                    ms=time_ms(kernel, reps, flush),
                    ms_warm_l2=time_ms(kernel, reps),
                    plain_ms=time_ms(plain, 3, flush, queued=False),
-                   bound_ms=bound_ms, bound_by=bound_by, **counts)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_ms_all_pairs=k23_bound_all_pairs(kname, attrs,
+                                                          work)[0],
+                   **counts)
         if kname == "K2":
             rec["max_abs_err_logt"] = logt_err
         log(f"{kname} " + json.dumps(rec))
+        if rec["ms"] < 0.95 * bound_ms:
+            raise AssertionError(f"{kname} {name}: {rec['ms']} ms is under "
+                                 f"95% of its bound {bound_ms} ms: the bound "
+                                 "counts work the kernel does not do")
         recs.append(rec)
     return recs
 
 
 def k23_parity(device):
-    """K2/K3 on the branch cases at K = 128 and 512: {case: (K2, K3)}."""
+    """K2/K3 on the branch and cull cases at K = 128 and 512:
+    {case: (K2, K3)}."""
     cases = {}
-    for K in (128, 512):
-        A, nch, ntx = composite_branch_cases(K)
-        cases[f"branches_K{K}"] = k23_case(
-            f"branches_K{K}", torch.as_tensor(A, device=device),
-            torch.as_tensor(nch, device=device), ntx, reps=20)
+    for kind, make in (("branches", composite_branch_cases),
+                       ("cull", composite_cull_cases)):
+        for K in (128, 512):
+            A, nch, ntx = make(K)
+            cases[f"{kind}_K{K}"] = k23_case(
+                f"{kind}_K{K}", torch.as_tensor(A, device=device),
+                torch.as_tensor(nch, device=device), ntx, reps=20,
+                per_tile=kind == "cull")
     return cases
+
+
+def k23_baseline(source, attrs, nchunks, ntx, reps):
+    """K2 and K3 of another build of the compositing source (the same C
+    interface, e.g. an earlier commit's csrc/composite_tiles.cu) against
+    this one, on the same inputs and card: both must give the same outputs
+    within K2's and K3's tolerances, and each is timed cold in the order
+    other, this, this, other.  Launches here go around the wrappers and are
+    not counted."""
+    lib = build.load_file(source)
+    stem = os.path.basename(source).rsplit(".", 1)[0]
+    with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.txt"), "a") as f:
+        f.write(f"== {stem} (--baseline-k23)\n{build.BUILD_INFO[stem]['log']}\n")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.composite_fwd_launch.argtypes = [p, p, i, i, i, p, p, p]
+    lib.composite_bwd_launch.argtypes = [p, p, p, i, i, i, p, p]
+    n, K, _ = attrs.shape
+    dev = attrs.device
+    out = torch.empty((n, 8, k23.P), device=dev)
+    logt = torch.empty((n, K // k23.CHUNK, k23.P), device=dev)
+    g_attrs = torch.empty_like(attrs)
+    gout = torch.randn((n, 8, k23.P), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(SEED))
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+
+    def other_fwd():
+        if lib.composite_fwd_launch(attrs.data_ptr(), nchunks.data_ptr(), n,
+                                    K, ntx, out.data_ptr(), logt.data_ptr(),
+                                    stream()):
+            raise RuntimeError(f"{source}: K2 launch failed")
+
+    def other_bwd():
+        if lib.composite_bwd_launch(attrs.data_ptr(), gout.data_ptr(),
+                                    logt.data_ptr(), n, K, ntx,
+                                    g_attrs.data_ptr(), stream()):
+            raise RuntimeError(f"{source}: K3 launch failed")
+
+    other_fwd()
+    other_bwd()
+    this_out, this_logt = k23.composite_fwd(attrs, nchunks, ntx)
+    this_g = k23.composite_bwd(attrs, logt, gout, ntx)
+    torch.cuda.synchronize()
+    if not torch.equal(entered(this_logt), entered(logt)):
+        raise AssertionError(f"{source}: K2 entered other chunks")
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 5)):
+        _assert_rel(f"{source} K2", this_out[:, rows], out[:, rows], 1e-5)
+    for c in range(10):
+        _assert_rel(f"{source} K3 column {c}", this_g[..., c],
+                    g_attrs[..., c], 1e-4)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rec = dict(source=source, tiles=n, K=K)
+    for kname, other, this in (
+            ("K2", other_fwd, lambda: k23.composite_fwd(attrs, nchunks, ntx)),
+            ("K3", other_bwd,
+             lambda: k23.composite_bwd(attrs, logt, gout, ntx))):
+        order = [("other", other), ("this", this), ("this", this),
+                 ("other", other)]
+        times = [(who, time_ms(fn, reps, flush)) for who, fn in order]
+        rec[kname] = dict(order=[w for w, _ in times],
+                          ms=[t for _, t in times],
+                          other_ms=min(t for w, t in times if w == "other"),
+                          this_ms=min(t for w, t in times if w == "this"))
+    log("K23_BASELINE " + json.dumps(rec))
+    return rec
 
 
 # ------------------------------------------------------------ BA path
@@ -922,24 +1177,31 @@ def k1_entry(cases, ba_rec, gp_rec):
                             for c in f32_cases))
 
 
-def k2_entry(main_case, branch_cases, gs_rec):
+def k23_entry(which, main_case, hand_cases, gs_rec, baseline):
+    """K2 (which = 0) or K3 (1) in the kernels line; ``baseline`` is
+    ``k23_baseline``'s record or None."""
+    kname = ("K2", "K3")[which]
+    extra = {}
+    if baseline is not None:
+        extra = dict(baseline_source=baseline["source"],
+                     baseline_ms=baseline[kname]["other_ms"],
+                     ms_beside_baseline=baseline[kname]["this_ms"])
     return kernel_entry(
-        "composite_fwd", "instantsfm_tpu_torch/csrc/composite_tiles.cu",
-        "instantsfm_tpu/gs/pallas_raster.py:240", gs_rec["k2_launches"],
-        main_case,
-        replaces_fn="instantsfm_tpu/gs/pallas_raster.py::_composite_fwd_raw",
-        max_abs_err_branches=max(c[0]["max_abs_err"]
-                                 for c in branch_cases.values()))
-
-
-def k3_entry(main_case, branch_cases, gs_rec):
-    return kernel_entry(
-        "composite_bwd", "instantsfm_tpu_torch/csrc/composite_tiles.cu",
-        "instantsfm_tpu/gs/pallas_raster.py:274", gs_rec["k3_launches"],
-        main_case,
-        replaces_fn="instantsfm_tpu/gs/pallas_raster.py::_composite_vjp_bwd",
-        max_abs_err_branches=max(c[1]["max_abs_err"]
-                                 for c in branch_cases.values()))
+        ("composite_fwd", "composite_bwd")[which],
+        "instantsfm_tpu_torch/csrc/composite_tiles.cu",
+        ("instantsfm_tpu/gs/pallas_raster.py:240",
+         "instantsfm_tpu/gs/pallas_raster.py:274")[which],
+        gs_rec[("k2_launches", "k3_launches")[which]], main_case,
+        replaces_fn=("instantsfm_tpu/gs/pallas_raster.py::_composite_fwd_raw",
+                     "instantsfm_tpu/gs/pallas_raster.py::_composite_vjp_bwd"
+                     )[which],
+        bound_ms_all_pairs=main_case["bound_ms_all_pairs"],
+        pairs=main_case["pairs"],
+        pairs_after_cull=main_case["pairs_after_cull"],
+        max_rel_err=main_case["max_rel_err"],
+        max_rel_err_hand_built=max(c[which]["max_rel_err"]
+                                   for c in hand_cases.values()),
+        **extra)
 
 
 def main(argv=None):
@@ -947,6 +1209,10 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one BA LM step and one 3DGS training "
                          "step (torch.profiler)")
+    ap.add_argument("--baseline-k23", metavar="CU_FILE",
+                    help="also build another version of "
+                         "csrc/composite_tiles.cu (same C interface) and time "
+                         "its K2/K3 beside this one's at the 3DGS main shape")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -971,7 +1237,7 @@ def main(argv=None):
     log(f"build: {build_s:.1f} s (nvcc, sm_90a, sources built in parallel)")
 
     k1_cases = k1_parity(device)
-    k23_branches = k23_parity(device)
+    k23_hand = k23_parity(device)
     # one-time cost of the process's first vmap(jacfwd) call, timed apart
     # from the BA stage: an add under it runs torch._refs.add, whose first
     # call imports torch._dynamo (and sympy, torch.distributed.tensor)
@@ -988,11 +1254,13 @@ def main(argv=None):
     if args.profile:
         profile_ba_step(device)
     gs_rec, tiles = run_gs(device, profile=args.profile)
-    k2_main, k3_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
+    k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
+    baseline = (k23_baseline(args.baseline_k23, *tiles, reps=20)
+                if args.baseline_k23 else None)
 
-    kernels = [k1_entry(k1_cases, ba_rec, gp_rec),
-               k2_entry(k2_main, k23_branches, gs_rec),
-               k3_entry(k3_main, k23_branches, gs_rec)]
+    kernels = [k1_entry(k1_cases, ba_rec, gp_rec)] + [
+        k23_entry(which, k23_main[which], k23_hand, gs_rec, baseline)
+        for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ hand-written kernels in ``csrc/composite_tiles.cu`` (built with nvcc on
 first use, launched on the current stream, counted in ``.launches``).
 There is no fallback between the two.  ``composite_tiles`` binds them as a
 ``torch.autograd.Function``.
+
+The kernels skip, per warp of 16x2 pixels, the rows whose alpha is zero at
+every pixel of the warp, by a box test (``cull_boxes`` mirrors the record
+they compute; only tests and measurements call it).  The skipped pairs have
+alpha = 0, so the kernels compute the same function as the plain versions.
 """
 
 from __future__ import annotations
@@ -84,6 +89,71 @@ def alpha_terms(a, px, py):
     live = (sigma > 0) & (clipped > MIN_ALPHA)
     alpha = torch.where(live, clipped, torch.zeros_like(clipped))
     return alpha, live & (raw < MAX_ALPHA), e, dx, dy
+
+
+# The cull's margins (csrc/composite_tiles.cu CULL_*): rows with
+# det > CULL_TAU (a + c)^2 get a box, the alpha threshold's sigma is widened
+# to s * CULL_S_REL + CULL_S_ABS, the half-extents to
+# h * CULL_H_REL + CULL_H_ABS + CULL_M_REL |mean|.
+CULL_TAU = 1e-4
+CULL_S_REL, CULL_S_ABS = 1.02, 0.02
+CULL_H_REL, CULL_H_ABS, CULL_M_REL = 1.001, 1e-3, 1e-6
+NWARP = P // 32
+
+
+def cull_boxes(a):
+    """a [..., ATTR] float32 rows -> [..., 4] float32 (x lo, x hi, y lo, y hi):
+    the box of pixel centres where the row's alpha can exceed 1/255, as the
+    kernels compute it (``cull_box`` in csrc/composite_tiles.cu, the same
+    formula, order and margins).  Nothing on the render path calls it.
+
+    alpha > 1/255 needs opacity e > 1/255, i.e. sigma < s = 2 ln(255 op);
+    the region {d : d^T C d < s} has half-extents sqrt(s c / det) in x and
+    sqrt(s a / det) in y (det = ac - b^2).  Why the margins make the box
+    hold every pair whose float32 ``alpha_terms`` give alpha > 0: with
+    det > 1e-4 (a + c)^2 the float32 sigma is within 0.72% of the exact
+    quadratic form (its rounding is below 2.4e-7 (a dx^2 + 2|b dx dy| +
+    c dy^2), at most 2 (a + c)^2 / det = 2e4 times the form, and the
+    rounded offsets add as much again), det itself within 0.06%, and
+    exp, log and the opacity product within a few ulp: widening s by 2% +
+    0.02 covers all of it.  The box's own float edges are within
+    2^-24 (|mean| + h) of exact, below the 1e-3 + 1e-6 |mean| + 0.1% h added.
+
+    Rules: a row with op <= 1/255 is never live (an empty box, +inf..-inf);
+    a row whose conic is not positive definite, fails the det test, or whose
+    box is not finite is always evaluated (-inf..+inf)."""
+    mx, my, ca, cb, cc, op = (a[..., i] for i in (MX, MY, CA, CB, CC, OP))
+    det = ca * cc - cb * cb
+    tr = ca + cc
+    s = 2.0 * torch.log(255.0 * op)
+    sw = s * CULL_S_REL + CULL_S_ABS
+    hx = (torch.sqrt(sw * cc / det) * CULL_H_REL + CULL_H_ABS
+          + mx.abs() * CULL_M_REL)
+    hy = (torch.sqrt(sw * ca / det) * CULL_H_REL + CULL_H_ABS
+          + my.abs() * CULL_M_REL)
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=-1)
+    inf = float("inf")
+    bounded = ((ca > 0) & (det > CULL_TAU * (tr * tr))
+               & torch.isfinite(box).all(dim=-1))
+    box = torch.where(bounded[..., None], box, box.new_tensor([-inf, inf,
+                                                               -inf, inf]))
+    return torch.where((op <= MIN_ALPHA)[..., None],
+                       box.new_tensor([inf, -inf, inf, -inf]), box)
+
+
+def cull_rows(attrs, ntx: int):
+    """attrs [n, K, ATTR] -> bool [n, K, NWARP]: the (row, warp) pairs the
+    kernels walk, i.e. whose box meets the warp's 16x2 rectangle of pixel
+    centres (warp w holds the tile's pixel rows 2w and 2w + 1)."""
+    n = attrs.shape[0]
+    box = cull_boxes(attrs)[:, :, None, :]                    # [n, K, 1, 4]
+    t = torch.arange(n, device=attrs.device)
+    w = torch.arange(NWARP, device=attrs.device)
+    x0 = ((t % ntx) * TILE).to(torch.float32)[:, None, None] + 0.5
+    y0 = (((t // ntx) * TILE)[:, None] + 2 * w[None, :]).to(
+        torch.float32)[:, None, :] + 0.5                     # [n, 1, NWARP]
+    return ~((box[..., 1] < x0) | (box[..., 0] > x0 + 15.0)
+             | (box[..., 3] < y0) | (box[..., 2] > y0 + 1.0))
 
 
 def _exclusive_cumsum(x):
@@ -194,6 +264,9 @@ def _check_attrs(attrs):
     if attrs.dim() != 3 or attrs.shape[2] != ATTR or attrs.shape[1] % CHUNK:
         raise ValueError(f"attrs must be [n_tiles, K % {CHUNK} == 0, {ATTR}], "
                          f"got {tuple(attrs.shape)}")
+    if attrs.data_ptr() % 16:
+        raise ValueError("attrs must start on a 16-byte boundary (the kernels "
+                         "stage it with 16-byte asynchronous copies)")
 
 
 def _check_rows(name, t, n, rows, device):

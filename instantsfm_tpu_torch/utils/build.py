@@ -39,24 +39,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build_all(names) -> None:
     """Compile every named source that is not built yet, one ``nvcc``
     process per source, all started together."""
+    _build([CSRC_DIR / f"{name}.cu" for name in names])
+
+
+def _build(sources) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
-        out = _target(name)
+    for src in sources:
+        name, out = src.stem, _target(src)
         if out.exists():
             BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((name, out, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -74,9 +77,16 @@ def build_all(names) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LOADED.get(name)
+    return load_file(CSRC_DIR / f"{name}.cu")
+
+
+def load_file(src) -> ctypes.CDLL:
+    """The loaded library of the CUDA source ``src`` (any path), built first
+    if needed; ``BUILD_INFO`` files it under the source's stem."""
+    src = Path(src).resolve()
+    lib = _LOADED.get(src)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LOADED[name] = lib
+        _build([src])
+        lib = ctypes.CDLL(str(_target(src)))
+        _LOADED[src] = lib
     return lib
