@@ -4,8 +4,6 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # the check
     python3 chip_smoke.py --profile  # also profile one BA LM and 3DGS step
-    python3 chip_smoke.py --baseline-k23 OLD.cu   # also time another build
-                                     # of csrc/composite_tiles.cu beside it
 
 Phases (any failure exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
@@ -28,14 +26,13 @@ Phases (any failure exits non-zero):
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3.  K2/K3 are then held against their plain versions on one
-     view's real tiles (and, with --baseline-k23, against the other build);
+     view's real tiles;
   6. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import os
@@ -406,8 +403,14 @@ def composite_work(attrs, logt, ntx):
     """What K2/K3 must do on these inputs: the entered chunks, the
     (gaussian, pixel) pairs in them, the (row, warp) pairs the cull keeps
     and the pairs those hold (32 each), the (row, warp) pairs where some
-    pixel's alpha is live, and the live pairs.  Raises if the cull would
-    skip a live pair (``k23.cull_rows``, the kernels' record)."""
+    pixel's alpha is live, and the live pairs.  The kept counts
+    (``warp_rows_kept``, ``pairs_after_cull``) are those of the plain
+    mirror of the cull, ``k23.cull_rows``, which computes the kernels'
+    record with the same formula; they are not read back from the kernels.
+    Raises if the mirror would skip a live pair.  The kernels' own cull is
+    held by output parity (``k23_case``): a skipped live pair has alpha
+    > 1/255 and would move its pixel beyond the tolerance unless its T is
+    tiny."""
     t_idx, c_idx = entered(logt).nonzero(as_tuple=True)
     px, py = k23.pixel_coords(attrs.shape[0], ntx, attrs.device)
     rows = torch.arange(k23.CHUNK, device=attrs.device)
@@ -626,70 +629,6 @@ def k23_parity(device):
                 torch.as_tensor(nch, device=device), ntx, reps=20,
                 per_tile=kind == "cull")
     return cases
-
-
-def k23_baseline(source, attrs, nchunks, ntx, reps):
-    """K2 and K3 of another build of the compositing source (the same C
-    interface, e.g. an earlier commit's csrc/composite_tiles.cu) against
-    this one, on the same inputs and card: both must give the same outputs
-    within K2's and K3's tolerances, and each is timed cold in the order
-    other, this, this, other.  Launches here go around the wrappers and are
-    not counted."""
-    lib = build.load_file(source)
-    stem = os.path.basename(source).rsplit(".", 1)[0]
-    with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.txt"), "a") as f:
-        f.write(f"== {stem} (--baseline-k23)\n{build.BUILD_INFO[stem]['log']}\n")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.composite_fwd_launch.argtypes = [p, p, i, i, i, p, p, p]
-    lib.composite_bwd_launch.argtypes = [p, p, p, i, i, i, p, p]
-    n, K, _ = attrs.shape
-    dev = attrs.device
-    out = torch.empty((n, 8, k23.P), device=dev)
-    logt = torch.empty((n, K // k23.CHUNK, k23.P), device=dev)
-    g_attrs = torch.empty_like(attrs)
-    gout = torch.randn((n, 8, k23.P), device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(SEED))
-    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
-
-    def other_fwd():
-        if lib.composite_fwd_launch(attrs.data_ptr(), nchunks.data_ptr(), n,
-                                    K, ntx, out.data_ptr(), logt.data_ptr(),
-                                    stream()):
-            raise RuntimeError(f"{source}: K2 launch failed")
-
-    def other_bwd():
-        if lib.composite_bwd_launch(attrs.data_ptr(), gout.data_ptr(),
-                                    logt.data_ptr(), n, K, ntx,
-                                    g_attrs.data_ptr(), stream()):
-            raise RuntimeError(f"{source}: K3 launch failed")
-
-    other_fwd()
-    other_bwd()
-    this_out, this_logt = k23.composite_fwd(attrs, nchunks, ntx)
-    this_g = k23.composite_bwd(attrs, logt, gout, ntx)
-    torch.cuda.synchronize()
-    if not torch.equal(entered(this_logt), entered(logt)):
-        raise AssertionError(f"{source}: K2 entered other chunks")
-    for rows in (slice(0, 3), slice(3, 4), slice(4, 5)):
-        _assert_rel(f"{source} K2", this_out[:, rows], out[:, rows], 1e-5)
-    for c in range(10):
-        _assert_rel(f"{source} K3 column {c}", this_g[..., c],
-                    g_attrs[..., c], 1e-4)
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    rec = dict(source=source, tiles=n, K=K)
-    for kname, other, this in (
-            ("K2", other_fwd, lambda: k23.composite_fwd(attrs, nchunks, ntx)),
-            ("K3", other_bwd,
-             lambda: k23.composite_bwd(attrs, logt, gout, ntx))):
-        order = [("other", other), ("this", this), ("this", this),
-                 ("other", other)]
-        times = [(who, time_ms(fn, reps, flush)) for who, fn in order]
-        rec[kname] = dict(order=[w for w, _ in times],
-                          ms=[t for _, t in times],
-                          other_ms=min(t for w, t in times if w == "other"),
-                          this_ms=min(t for w, t in times if w == "this"))
-    log("K23_BASELINE " + json.dumps(rec))
-    return rec
 
 
 # ------------------------------------------------------------ BA path
@@ -1177,15 +1116,8 @@ def k1_entry(cases, ba_rec, gp_rec):
                             for c in f32_cases))
 
 
-def k23_entry(which, main_case, hand_cases, gs_rec, baseline):
-    """K2 (which = 0) or K3 (1) in the kernels line; ``baseline`` is
-    ``k23_baseline``'s record or None."""
-    kname = ("K2", "K3")[which]
-    extra = {}
-    if baseline is not None:
-        extra = dict(baseline_source=baseline["source"],
-                     baseline_ms=baseline[kname]["other_ms"],
-                     ms_beside_baseline=baseline[kname]["this_ms"])
+def k23_entry(which, main_case, hand_cases, gs_rec):
+    """K2 (which = 0) or K3 (1) in the kernels line."""
     return kernel_entry(
         ("composite_fwd", "composite_bwd")[which],
         "instantsfm_tpu_torch/csrc/composite_tiles.cu",
@@ -1200,8 +1132,7 @@ def k23_entry(which, main_case, hand_cases, gs_rec, baseline):
         pairs_after_cull=main_case["pairs_after_cull"],
         max_rel_err=main_case["max_rel_err"],
         max_rel_err_hand_built=max(c[which]["max_rel_err"]
-                                   for c in hand_cases.values()),
-        **extra)
+                                   for c in hand_cases.values()))
 
 
 def main(argv=None):
@@ -1209,10 +1140,6 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one BA LM step and one 3DGS training "
                          "step (torch.profiler)")
-    ap.add_argument("--baseline-k23", metavar="CU_FILE",
-                    help="also build another version of "
-                         "csrc/composite_tiles.cu (same C interface) and time "
-                         "its K2/K3 beside this one's at the 3DGS main shape")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1255,11 +1182,9 @@ def main(argv=None):
         profile_ba_step(device)
     gs_rec, tiles = run_gs(device, profile=args.profile)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
-    baseline = (k23_baseline(args.baseline_k23, *tiles, reps=20)
-                if args.baseline_k23 else None)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec)] + [
-        k23_entry(which, k23_main[which], k23_hand, gs_rec, baseline)
+        k23_entry(which, k23_main[which], k23_hand, gs_rec)
         for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

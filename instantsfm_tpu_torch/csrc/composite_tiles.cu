@@ -49,8 +49,9 @@
 //     a > 0 and det > 1e-4 (a + c)^2 and its box is finite, and never when
 //     opacity <= 1/255.  gs/composite.py cull_boxes computes the same record
 //     with the same formula and margins, and tests/test_torch_composite_cull.py
-//     holds it against alpha_terms: every pair with alpha > 0 lies inside
-//     its row's box.  Each warp ballots which of the 128 boxes meet its
+//     probes that mirror against alpha_terms: every pair with alpha > 0
+//     lies inside its row's box; the kernels are held by output parity on
+//     tiles built on the cull's edges (chip_smoke.py composite_cull_cases).  Each warp ballots which of the 128 boxes meet its
 //     rectangle and walks only those rows (a warp-uniform loop over set
 //     bits); every pair it does walk goes through the exact alpha terms.
 //     A skipped pair has alpha = 0, so the outputs are the same function.
@@ -67,9 +68,10 @@
 //     the 8 warp sums of every row of the chunk in shared memory (40 KB), and
 //     sums them in a fixed order once per chunk: 4 barriers a chunk.  Its
 //     66 KB of shared memory is dynamic; 3 blocks share an SM.
-//   * One pixel per thread was kept over several: a warp covering 16x4
-//     pixels would halve the shared-memory loads per pair but evaluate the
-//     rows of every box that meets the taller rectangle.
+//   * One pixel per thread was kept over several: two pixels a thread, a
+//     warp over 16x4 pixels, halves the shared-memory loads per pair but
+//     evaluates the rows of every box that meets the taller rectangle, and
+//     was slower on an H100 (PERF.md, compare_composite_builds.py).
 //   * routing g_attrs to the gaussians stays outside (autograd's transpose
 //     of the tile gather in gs/rasterize.py).
 //

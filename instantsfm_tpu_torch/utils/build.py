@@ -39,27 +39,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def _target(src: Path) -> Path:
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names) -> None:
     """Compile every named source that is not built yet, one ``nvcc``
     process per source, all started together."""
-    _build([CSRC_DIR / f"{name}.cu" for name in names])
-
-
-def _build(sources) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src in sources:
-        name, out = src.stem, _target(src)
+    for name in names:
+        out = _target(name)
         if out.exists():
             BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs.append((name, out, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -77,16 +74,9 @@ def _build(sources) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return load_file(CSRC_DIR / f"{name}.cu")
-
-
-def load_file(src) -> ctypes.CDLL:
-    """The loaded library of the CUDA source ``src`` (any path), built first
-    if needed; ``BUILD_INFO`` files it under the source's stem."""
-    src = Path(src).resolve()
-    lib = _LOADED.get(src)
+    lib = _LOADED.get(name)
     if lib is None:
-        _build([src])
-        lib = ctypes.CDLL(str(_target(src)))
-        _LOADED[src] = lib
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LOADED[name] = lib
     return lib

@@ -1,4 +1,5 @@
-"""The K2/K3 kernels' cull of dead (gaussian, pixel) pairs is exact.
+"""The cull record of the K2/K3 kernels, in its plain mirror, skips no live
+(gaussian, pixel) pair.
 
 The kernels (csrc/composite_tiles.cu ``cull_box``) skip a row for a warp of
 16x2 pixels when the row's box misses the warp's pixel centres;
@@ -8,7 +9,9 @@ kernels and the plain versions evaluate: no pair with alpha > 0 lies
 outside its row's box, on random rows and on the cull's edges (contours
 through the pixel, thin conics with |b| near sqrt(ac), opacities at 1/255
 and at the 0.999 clip, conics that are not positive definite, means far
-away, sigma = 0 at the pixel).  CPU only."""
+away, sigma = 0 at the pixel).  CPU only: they probe the mirror, not the
+kernels, which ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold by
+output parity on the card."""
 
 import numpy as np
 import pytest

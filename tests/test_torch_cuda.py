@@ -111,13 +111,7 @@ def test_bundle_adjustment_rounds_card_matches_cpu():
     np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=1e-6)
 
 
-def _rel_close(got, want, rel, per_tile=False):
-    """|got - want| <= rel * max|want|, the max over the whole tensor or,
-    with ``per_tile``, over each tile (dim 0) apart."""
-    if per_tile:
-        for g, w in zip(got, want):
-            _rel_close(g, w, rel)
-        return
+def _rel_close(got, want, rel):
     scale = max(want.abs().max().item(), 1e-30)
     torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)
 
@@ -153,14 +147,16 @@ def test_composite_kernels_match_reference(K, cases):
     if branches:
         assert ent[1].sum() == (1 if K > 128 else K // 128)  # early exit
     for rows in (slice(0, 3), slice(3, 4), slice(4, 5)):
-        _rel_close(got_out[:, rows], want_out[:, rows], 1e-5, not branches)
+        chip_smoke._assert_rel("K2", got_out[:, rows], want_out[:, rows],
+                               1e-5, per_tile=not branches)
     _rel_close(got_logt[ent], want_logt[ent], 1e-5)
     assert (got_out[:, 5:] == 0).all()
     if branches:
         assert (got_out[0, :3] == 0).all()
     want_g = k23.composite_bwd_reference(attrs, want_logt, gout, ntx)
     for c in range(10):
-        _rel_close(got_g[..., c], want_g[..., c], 1e-4, not branches)
+        chip_smoke._assert_rel(f"K3 column {c}", got_g[..., c],
+                               want_g[..., c], 1e-4, per_tile=not branches)
     assert (got_g[..., 10:] == 0).all()
     assert (got_g[~ent.repeat_interleave(128, dim=1)] == 0).all()
 
