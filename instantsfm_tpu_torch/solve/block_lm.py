@@ -259,6 +259,12 @@ def _tri3_solve(L, B):
     return torch.stack([x0, x1, x2], dim=-2)
 
 
+def schur_matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x):
+    """Reduced-camera Schur operator: U_d x - SUM_cam W V_inv Wᵀ x, x [C, PC].
+    The observation side and its camera sum are one K1 launch on the card."""
+    return _mv(U_d, x) - schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets)
+
+
 def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                  lam, pcg_iters: int = 100, pcg_tol: float = 1e-5,
                  eps: float = 1e-8, dense_schur: Optional[bool] = None,
@@ -335,10 +341,6 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         d_cam = torch.cholesky_solve(rhs.reshape(n, 1), chol).reshape(C, PC)
         iters = 0
     else:
-        def schur_matvec(x):                                      # x: [C, PC]
-            u = schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets)
-            return _mv(U_d, x) - _seg_by_cam(u, cam_idx, C)
-
         # block-Jacobi preconditioner on the Schur diagonal; its camera
         # reduction and the rhs correction share one index_add_
         Vg = _gather_by_pt(V_inv, pt_idx, buckets, O)             # [O, 3, 3]
@@ -351,7 +353,9 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         D = D + eps * torch.eye(PC, dtype=D.dtype, device=D.device)
         D_inv = torch.linalg.inv(D)
 
-        d_cam, _, iters = pcg(schur_matvec, rhs, lambda v: _mv(D_inv, v),
+        matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx,
+                         buckets)
+        d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
                               max_iters=pcg_iters, tol=pcg_tol)
         _dbg.stat_add("pcg_iters", iters)
 

@@ -1,18 +1,23 @@
-"""Observation half of the reduced-camera Schur matvec (kernel K1).
+"""Observation side of the reduced-camera Schur matvec (kernel K1).
 
-Replaces ``instantsfm_tpu/solve/pallas_schur.py::schur_wchain``.  Every PCG
-iteration of BA (camera block PC=8) and GP (PC=3) applies
+Replaces ``instantsfm_tpu/solve/pallas_schur.py::schur_wchain`` together
+with the camera-side sum its caller applies (``seg_cam`` at
+``instantsfm_tpu/solve/block_lm.py:898-904``).  Every PCG iteration of BA
+(camera block PC=8) and GP (PC=3) applies
 
-    y = U_d x - SUM_cam u,    u_o = W_o V_inv[pt_o] SUM_track(o) W_kᵀ x[cam_k]
+    S x = U_d x - y,    y[c] = SUM_{o: cam_o = c} u_o,
+    u_o = W_o V_inv[pt_o] SUM_track(o) W_kᵀ x[cam_k]
 
-and this module computes u [O', PC] (obs-major) for the bucketed track
-layout (``solve/blocked.py``): the observations of one track are an aligned
-group of L = 2**k rows.  The camera-side sum stays outside (``index_add_``).
+and this module computes y [C, PC] for the bucketed track layout
+(``solve/blocked.py``): the observations of one track are an aligned group
+of L = 2**k rows.
 
 ``schur_wchain`` dispatches on the device of its inputs: CPU tensors go to
-``schur_wchain_reference`` (plain torch), CUDA tensors to the hand-written
-kernel in ``csrc/schur_wchain.cu`` (built with nvcc on first use, launched
-on the current stream).  There is no fallback between the two.
+``schur_wchain_reference`` (plain torch: the per-row chain
+``schur_wchain_rows_reference``, then ``index_add_`` by camera), CUDA
+tensors to the hand-written kernel in ``csrc/schur_wchain.cu`` (built with
+nvcc on first use, launched on the current stream), which never writes u.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -26,15 +31,18 @@ import torch
 from instantsfm_tpu_torch.solve.blocked import gather_pt, seg_by_pt
 from instantsfm_tpu_torch.utils import build
 
-BLOCK = 256       # threads per block (must match csrc/schur_wchain.cu)
-MAX_BUCKETS = 32  # bucket-table capacity (must match csrc/schur_wchain.cu)
+BLOCK = 256       # threads per block and rows per work item (csrc/schur_wchain.cu)
+MAX_BUCKETS = 32  # bucket-table capacity (csrc/schur_wchain.cu)
+# largest [C, PC] table the kernel sums in shared memory; above it, global
+# atomics (csrc/schur_wchain.cu SHARED_TABLE_LIMIT)
+SHARED_TABLE_BYTES = 48 * 1024
 MAX_PC = 8
 
 
-def schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets):
-    """Plain torch version: gather x[cam], t = Wᵀ x, track sums (bucketed
-    reshape-sums, or a sorted segment sum without buckets), z = V_inv s,
-    u = W z.
+def schur_wchain_rows_reference(W, V_inv, x, cam_idx, pt_idx, buckets):
+    """Plain torch per-row chain: gather x[cam], t = Wᵀ x, track sums
+    (bucketed reshape-sums, or a segment sum without buckets), z = V_inv s,
+    u = W z.  Returns u [O', PC].
 
     W [O', PC, 3], V_inv [T, 3, 3], x [C, PC], cam_idx/pt_idx [O'] int.
     """
@@ -50,44 +58,58 @@ def schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets):
     return torch.sum(W * zg[:, None, :], dim=-1)                  # [O, PC]
 
 
+def schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets):
+    """Plain torch version of the kernel: the per-row chain, then its sum by
+    camera (``index_add_``).  Returns y [C, PC]."""
+    u = schur_wchain_rows_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
+    return u.new_zeros(x.shape).index_add_(0, cam_idx, u)
+
+
+def shared_table(C, PC, dtype) -> bool:
+    """Whether the kernel sums cameras in a shared-memory table (else it adds
+    each row's u to y with global atomics)."""
+    return C * PC * (torch.finfo(dtype).bits // 8) <= SHARED_TABLE_BYTES
+
+
 @lru_cache(maxsize=64)
 def launch_table(buckets):
-    """Per-bucket launch geometry for the kernel, as int64 host arrays:
-    (row_start, rows, log_l, blk_off).
+    """Per-bucket work items of the kernel, as int64 host arrays:
+    (row_start, rows, pt_start, log_l, item_off).
 
-    A bucket with L <= BLOCK gets one block per BLOCK rows (each block holds
-    whole groups); a bucket with L > BLOCK gets one block per group.  Block
-    b of the flat grid serves bucket i where blk_off[i] <= b < blk_off[i+1].
+    A bucket with L <= BLOCK has one item per BLOCK rows (each holds whole
+    groups); a bucket with L > BLOCK one item per group.  Item i of the
+    flat list belongs to bucket b where item_off[b] <= i < item_off[b+1].
     """
     if not buckets:
         raise ValueError("schur_wchain kernel needs the bucketed track layout "
                          "(solve.blocked.bucketize_problem)")
     if len(buckets) > MAX_BUCKETS:
         raise ValueError(f"{len(buckets)} buckets > MAX_BUCKETS={MAX_BUCKETS}")
-    row_start, rows, log_l, blk_off = [], [], [], [0]
+    row_start, rows, pt_start, log_l, item_off = [], [], [], [], [0]
     for (os_, ps, Tb, L) in buckets:
-        if L < 1 or L & (L - 1):
-            raise ValueError(f"bucket length {L} is not a power of two")
+        if L < 2 or L & (L - 1):
+            raise ValueError(f"bucket length {L} is not a power of two >= 2")
         span = Tb * L
-        per_block = max(BLOCK, L)
         row_start.append(os_)
         rows.append(span)
+        pt_start.append(ps)
         log_l.append(L.bit_length() - 1)
-        blk_off.append(blk_off[-1] + -(-span // per_block))
+        item_off.append(item_off[-1] + -(-span // max(BLOCK, L)))
     return tuple(np.asarray(a, np.int64)
-                 for a in (row_start, rows, log_l, blk_off))
+                 for a in (row_start, rows, pt_start, log_l, item_off))
 
 
 @lru_cache(maxsize=None)
 def _lib():
     """The kernel's library (built on first use) with its C signatures."""
     lib = build.load("schur_wchain")
-    p = ctypes.c_void_p
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.schur_wchain_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int,          # dtype code, PC
-        p, p, p, p, p, p,                    # W, V_inv, x, cam, pt, u
-        ctypes.c_int, p, p, p, p,            # nb, row_start, rows, log_l, blk_off
-        p]                                   # stream
+        i, i,                     # dtype code, PC
+        p, p, p, p, p,            # W, V_inv, x, cam_idx, y
+        ll, ll, i,                # rows O', point slots T, cameras C
+        i, p, p, p, p, p,         # nb, row_start, rows, pt_start, log_l, item_off
+        i, p]                     # most blocks an SM (0: the cap), stream
     lib.schur_wchain_launch.restype = ctypes.c_int
     lib.schur_wchain_error_string.argtypes = [ctypes.c_int]
     lib.schur_wchain_error_string.restype = ctypes.c_char_p
@@ -97,54 +119,66 @@ def _lib():
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def _launch(W, V_inv, x, cam_idx, pt_idx, buckets):
+def _launch(W, V_inv, x, cam_idx, buckets):
     O, PC = W.shape[0], W.shape[1]
+    C = x.shape[0]
     if W.dtype not in _DTYPE_CODE:
         raise TypeError(f"schur_wchain kernel takes float32/float64, got {W.dtype}")
     for name, t in (("V_inv", V_inv), ("x", x)):
         if t.dtype != W.dtype:
             raise TypeError(f"{name} is {t.dtype}, W is {W.dtype}")
-    for name, t in (("cam_idx", cam_idx), ("pt_idx", pt_idx)):
-        if t.dtype != torch.int32 or t.shape != (O,):
-            raise TypeError(f"{name} must be int32 [{O}], got {t.dtype} {tuple(t.shape)}")
-    if W.shape[2] != 3 or not 1 <= PC <= MAX_PC:
+    if cam_idx.dtype != torch.int32 or cam_idx.shape != (O,):
+        raise TypeError(f"cam_idx must be int32 [{O}], got {cam_idx.dtype} "
+                        f"{tuple(cam_idx.shape)}")
+    if W.dim() != 3 or W.shape[2] != 3 or not 1 <= PC <= MAX_PC:
         raise ValueError(f"W must be [O, PC<= {MAX_PC}, 3], got {tuple(W.shape)}")
-    if V_inv.shape[1:] != (3, 3) or x.shape[1] != PC:
+    if V_inv.shape[1:] != (3, 3) or x.shape != (C, PC) or C < 1:
         raise ValueError(f"V_inv {tuple(V_inv.shape)} / x {tuple(x.shape)} "
                          f"do not match PC={PC}")
-    if any(t.device != W.device for t in (V_inv, x, cam_idx, pt_idx)):
+    if any(t.device != W.device for t in (V_inv, x, cam_idx)):
         raise ValueError("schur_wchain inputs live on different devices")
-    row_start, rows, log_l, blk_off = launch_table(tuple(buckets))
+    for name, t in (("W", W), ("V_inv", V_inv), ("cam_idx", cam_idx)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes: the kernel "
+                             "stages it with 16-byte copies")
+    row_start, rows, pt_start, log_l, item_off = launch_table(tuple(buckets))
     if int(rows.sum()) != O:
         raise ValueError(f"buckets cover {int(rows.sum())} rows, W has {O}")
+    slots = max(ps + Tb for (_, ps, Tb, _) in buckets)
+    if slots > V_inv.shape[0]:
+        raise ValueError(f"buckets reach point slot {slots}, V_inv has "
+                         f"{V_inv.shape[0]}")
 
-    u = torch.empty((O, PC), dtype=W.dtype, device=W.device)
+    y = torch.empty((C, PC), dtype=W.dtype, device=W.device)
     lib = _lib()
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = lib.schur_wchain_launch(
             _DTYPE_CODE[W.dtype], PC, W.data_ptr(), V_inv.data_ptr(),
-            x.data_ptr(), cam_idx.data_ptr(), pt_idx.data_ptr(), u.data_ptr(),
-            len(row_start), row_start.ctypes.data, rows.ctypes.data,
-            log_l.ctypes.data, blk_off.ctypes.data, stream)
+            x.data_ptr(), cam_idx.data_ptr(), y.data_ptr(), O,
+            V_inv.shape[0], C, len(row_start), row_start.ctypes.data,
+            rows.ctypes.data, pt_start.ctypes.data, log_l.ctypes.data,
+            item_off.ctypes.data, 0, stream)
     if err != 0:
         raise RuntimeError("schur_wchain kernel launch failed: "
                            + lib.schur_wchain_error_string(err).decode())
     schur_wchain.launches += 1
-    return u
+    return y
 
 
 def schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets):
-    """u [O', PC] = W_o V_inv[pt_o] SUM_track(o)(W_kᵀ x[cam_k]).
+    """y [C, PC] = SUM by camera of u_o = W_o V_inv[pt_o] SUM_track(o)(W_kᵀ
+    x[cam_k]).
 
     CPU tensors: ``schur_wchain_reference``.  CUDA tensors: the CUDA kernel
-    (counted in ``schur_wchain.launches``), which requires ``buckets``."""
+    (counted in ``schur_wchain.launches``), which requires ``buckets`` and
+    finds each row's point slot from them (``pt_idx`` is not read)."""
     if W.device.type == "cpu":
         return schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
     if W.device.type != "cuda":
         raise ValueError(f"schur_wchain: unsupported device {W.device}")
     return _launch(W.contiguous(), V_inv.contiguous(), x.contiguous(),
-                   cam_idx.contiguous(), pt_idx.contiguous(), buckets)
+                   cam_idx.contiguous(), buckets)
 
 
 schur_wchain.launches = 0
