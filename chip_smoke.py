@@ -88,7 +88,7 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def time_ms(fn, reps, flush=None, queued=True, flush_by_read=False):
+def time_ms(fn, reps, flush=None, queued=True):
     """Mean device time of one call of ``fn`` over ``reps`` calls (CUDA
     events, after two warm-up calls).
 
@@ -96,9 +96,6 @@ def time_ms(fn, reps, flush=None, queued=True, flush_by_read=False):
     inputs in the 50 MB L2 left by the one before.  With ``flush`` (a
     tensor larger than L2) the buffer is overwritten before every call and
     each call is timed on its own, from device memory, as the bound counts.
-    The overwrite leaves the L2 full of dirty lines, which the call then
-    writes back as it evicts them; ``flush_by_read`` reads the buffer
-    instead, so the call finds the L2 clean.
 
     A sleep kernel holds the stream while the host queues every call, so
     the events time the device alone: a Python wrapper's dispatch (tens of
@@ -114,7 +111,6 @@ def time_ms(fn, reps, flush=None, queued=True, flush_by_read=False):
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
              for _ in range(reps if flush is not None else 1)]
-    sink = flush.new_empty(()) if flush_by_read else None
     cycles = 10 ** 7
     for _ in range(6):
         if queued:
@@ -126,10 +122,7 @@ def time_ms(fn, reps, flush=None, queued=True, flush_by_read=False):
             pairs[0][1].record()
         else:
             for start, end in pairs:
-                if flush_by_read:
-                    torch.sum(flush, dim=0, out=sink)
-                else:
-                    flush.zero_()
+                flush.zero_()
                 start.record()
                 fn()
                 end.record()

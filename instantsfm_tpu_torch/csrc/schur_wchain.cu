@@ -42,7 +42,9 @@
 //   * Track sums keep the first port's three paths: a warp XOR butterfly
 //     for L <= 32, warp sums through shared memory for L <= 256, and for
 //     L > 256 one item a group, walked twice (t sums, then u).
-//   * Camera sums.  While C * PC * sizeof(T) <= SHARED_TABLE_LIMIT the block
+//   * Camera sums.  Where the table fits (solve/schur_wchain.py::shared_table
+//     decides and passes `shared`: the accumulator and x take at most 96 KB,
+//     which leaves room for the staging buffers at every PC) the block
 //     keeps x ([PC, C]) and an accumulator ([words, C]: four float32 entries
 //     or two float64 a 16-byte word) in shared memory, camera minor, so a
 //     warp's unrelated cameras spread over the banks.  It adds each row's u
@@ -50,17 +52,18 @@
 //     (atom.shared.cas.b128, new in sm_90), the row's words in flight
 //     together (atomicAdd on a shared float is itself a compare-and-swap
 //     loop, one entry at a time), and at the end its table to y with one
-//     global atomic per nonzero entry, 16 bytes at a time in float32.  Above the limit (C > 1,536 at PC = 8 in float32) each row
-//     adds its u straight to y with global atomics, and x is read through
-//     L1.  Rows whose W is exactly zero (the layout's padding, all on
-//     camera 0) are skipped: their u is exactly 0.  y is summed with
-//     atomics, so the order of its additions changes from run to run.
+//     global atomic per nonzero entry, 16 bytes at a time in float32.
+//     Where it does not (C > 1,536 at PC = 8 in float32) each row adds its
+//     u straight to y with global atomics, and x is read through L1.  Rows
+//     whose W is exactly zero (the layout's padding, all on camera 0) are
+//     skipped: their u is exactly 0.  y is summed with atomics, so the
+//     order of its additions changes from run to run.
 //   * The launch is programmatic (PDL): the kernel may start while the
 //     memset of y before it finishes, and waits for it (griddepcontrol.wait)
 //     before its first write to y.
 //
-// Tried on the card and dropped (PERF.md, compare_schur_builds.py): three
-// or four staging buffers (fewer blocks an SM), x read through L1, staging
+// Tried on the card and dropped (PERF.md): three or four staging buffers
+// (fewer blocks an SM), x read through L1, staging
 // the next item before the atomics rather than before the wait, atomicAdd
 // on shared floats, and a 64-bit compare-and-swap a word (3-11% slower
 // than 128-bit).  Summing a warp's peers of a camera first
@@ -79,9 +82,9 @@
 #define BLOCK 256                        // threads per block (solve/schur_wchain.py BLOCK)
 #define NWARP (BLOCK / 32)
 #define MAX_BUCKETS 32                   // solve/schur_wchain.py MAX_BUCKETS
-#define SHARED_TABLE_LIMIT (48 * 1024)   // solve/schur_wchain.py SHARED_TABLE_BYTES
 #define NSTAGE 2                         // staging buffers: NSTAGE - 1 items ahead
 #define MAX_PER_SM 3                     // resident blocks an SM, at most
+#define MAX_DEVICES 64                   // devices whose SM count is kept
 #define FULL_MASK 0xffffffffu
 
 struct BucketTable {
@@ -587,7 +590,7 @@ struct LaunchArgs {
   const void *W, *V_inv, *x, *cam_idx;
   void* y;
   long long num_rows, num_slots;
-  int C, vcap, sms, blocks_per_sm;
+  int C, vcap, sms;
   BucketTable tab;
 };
 
@@ -613,8 +616,7 @@ static cudaError_t launch_kernel(const LaunchArgs& a, cudaStream_t stream) {
     occ_smem = smem;
   }
   if (occ < 1) return cudaErrorInvalidConfiguration;
-  const int want = a.blocks_per_sm > 0 ? a.blocks_per_sm : MAX_PER_SM;
-  const int per_sm = want < occ ? want : occ;
+  const int per_sm = MAX_PER_SM < occ ? MAX_PER_SM : occ;
   const long long nitems = a.tab.item_off[a.tab.n];
   const long long cap = (long long)per_sm * a.sms;
   const unsigned grid = (unsigned)(nitems < cap ? nitems : cap);
@@ -654,20 +656,19 @@ static cudaError_t launch_typed(int pc, bool shared, const LaunchArgs& a,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.  PC in 1..8.  W [num_rows, PC, 3],
-// V_inv [num_slots, 3, 3] and cam_idx [num_rows] start on 16 bytes; x and
-// y are [num_cams, PC].  The bucket arrays are host arrays of nb entries
-// (item_off: nb + 1), built by solve/schur_wchain.py::launch_table.
-// blocks_per_sm: at most that many blocks an SM, or 0 for MAX_PER_SM
-// (compare_schur_builds.py times other counts).  Returns a
-// cudaError_t code.
-int schur_wchain_launch(int dtype, int pc, const void* W, const void* V_inv,
-                        const void* x, const void* cam_idx, void* y,
-                        long long num_rows, long long num_slots, int num_cams,
-                        int nb, const long long* row_start,
+// dtype: 0 = float32, 1 = float64.  PC in 1..8.  shared: sum cameras in a
+// shared-memory table (solve/schur_wchain.py::shared_table), else with
+// global atomics.  W [num_rows, PC, 3], V_inv [num_slots, 3, 3] and
+// cam_idx [num_rows] start on 16 bytes; x and y are [num_cams, PC].  The
+// bucket arrays are host arrays of nb entries (item_off: nb + 1), built by
+// solve/schur_wchain.py::launch_table.  Returns a cudaError_t code.
+int schur_wchain_launch(int dtype, int pc, int shared, const void* W,
+                        const void* V_inv, const void* x, const void* cam_idx,
+                        void* y, long long num_rows, long long num_slots,
+                        int num_cams, int nb, const long long* row_start,
                         const long long* rows, const long long* pt_start,
                         const long long* log_l, const long long* item_off,
-                        int blocks_per_sm, void* stream) {
+                        void* stream) {
   if (nb < 1 || nb > MAX_BUCKETS || pc < 1 || pc > 8 || dtype < 0 ||
       dtype > 1 || num_cams < 1 || item_off[nb] > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -685,7 +686,6 @@ int schur_wchain_launch(int dtype, int pc, const void* W, const void* V_inv,
   a.num_rows = num_rows;
   a.num_slots = num_slots;
   a.C = num_cams;
-  a.blocks_per_sm = blocks_per_sm;
   a.vcap = 1;  // point slots a step stages, at most
   a.tab.n = nb;
   for (int i = 0; i < nb; ++i) {
@@ -700,14 +700,20 @@ int schur_wchain_launch(int dtype, int pc, const void* W, const void* V_inv,
   }
   a.tab.item_off[nb] = (int)item_off[nb];
   if (a.tab.item_off[nb] == 0) return (int)cudaSuccess;
+  // each device's SM count, queried on its first launch
+  static int sms[MAX_DEVICES] = {};
   int dev;
   err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&a.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const bool shared = num_cams * pc * esize <= SHARED_TABLE_LIMIT;
-  err = dtype == 0 ? launch_typed<float>(pc, shared, a, s)
-                   : launch_typed<double>(pc, shared, a, s);
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  a.sms = sms[dev];
+  err = dtype == 0 ? launch_typed<float>(pc, shared != 0, a, s)
+                   : launch_typed<double>(pc, shared != 0, a, s);
   return (int)err;
 }
 

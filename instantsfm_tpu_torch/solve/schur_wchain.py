@@ -33,9 +33,8 @@ from instantsfm_tpu_torch.utils import build
 
 BLOCK = 256       # threads per block and rows per work item (csrc/schur_wchain.cu)
 MAX_BUCKETS = 32  # bucket-table capacity (csrc/schur_wchain.cu)
-# largest [C, PC] table the kernel sums in shared memory; above it, global
-# atomics (csrc/schur_wchain.cu SHARED_TABLE_LIMIT)
-SHARED_TABLE_BYTES = 48 * 1024
+# most shared memory the kernel's camera table may take (see shared_table)
+SHARED_TABLE_BYTES = 96 * 1024
 MAX_PC = 8
 
 
@@ -67,8 +66,16 @@ def schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets):
 
 def shared_table(C, PC, dtype) -> bool:
     """Whether the kernel sums cameras in a shared-memory table (else it adds
-    each row's u to y with global atomics)."""
-    return C * PC * (torch.finfo(dtype).bits // 8) <= SHARED_TABLE_BYTES
+    each row's u to y with global atomics); the wrapper passes this to the
+    launcher.
+
+    The table is the accumulator, each camera's PC entries padded to 16-byte
+    words, and a copy of x: at most 96 KB, which leaves room for the staging
+    buffers (at most 127,040 B, float64 at PC = 8) under the card's 227 KB a
+    block.  At PC = 8 that is C <= 1,536 in float32 and 768 in float64."""
+    size = torch.finfo(dtype).bits // 8
+    per_cam = 16 * -(-PC * size // 16) + PC * size
+    return C * per_cam <= SHARED_TABLE_BYTES
 
 
 @lru_cache(maxsize=64)
@@ -105,11 +112,11 @@ def _lib():
     lib = build.load("schur_wchain")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.schur_wchain_launch.argtypes = [
-        i, i,                     # dtype code, PC
+        i, i, i,                  # dtype code, PC, shared table (0/1)
         p, p, p, p, p,            # W, V_inv, x, cam_idx, y
         ll, ll, i,                # rows O', point slots T, cameras C
         i, p, p, p, p, p,         # nb, row_start, rows, pt_start, log_l, item_off
-        i, p]                     # most blocks an SM (0: the cap), stream
+        p]                        # stream
     lib.schur_wchain_launch.restype = ctypes.c_int
     lib.schur_wchain_error_string.argtypes = [ctypes.c_int]
     lib.schur_wchain_error_string.restype = ctypes.c_char_p
@@ -154,11 +161,11 @@ def _launch(W, V_inv, x, cam_idx, buckets):
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = lib.schur_wchain_launch(
-            _DTYPE_CODE[W.dtype], PC, W.data_ptr(), V_inv.data_ptr(),
-            x.data_ptr(), cam_idx.data_ptr(), y.data_ptr(), O,
-            V_inv.shape[0], C, len(row_start), row_start.ctypes.data,
-            rows.ctypes.data, pt_start.ctypes.data, log_l.ctypes.data,
-            item_off.ctypes.data, 0, stream)
+            _DTYPE_CODE[W.dtype], PC, int(shared_table(C, PC, W.dtype)),
+            W.data_ptr(), V_inv.data_ptr(), x.data_ptr(), cam_idx.data_ptr(),
+            y.data_ptr(), O, V_inv.shape[0], C, len(row_start),
+            row_start.ctypes.data, rows.ctypes.data, pt_start.ctypes.data,
+            log_l.ctypes.data, item_off.ctypes.data, stream)
     if err != 0:
         raise RuntimeError("schur_wchain kernel launch failed: "
                            + lib.schur_wchain_error_string(err).decode())

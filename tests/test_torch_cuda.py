@@ -80,15 +80,27 @@ def test_schur_wchain_kernel_matches_reference(PC, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["many_cams", "unaligned", "mostly_pad"])
+@pytest.mark.parametrize("layout", ["many_cams", "unaligned", "mostly_pad",
+                                    "table_edge"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_schur_wchain_kernel_layouts(layout, dtype):
     """The global-atomic branch (4,000 cameras, past the shared table);
     bucket spans that do not start on 16 bytes (track_pad=1, PC=3: 36-byte
     rows); a bucket whose rows are mostly padding (10 tracks padded to 256,
-    all padded rows on camera 0)."""
+    all padded rows on camera 0); PC = 1 and 8 at the most cameras the
+    shared table takes and at one more, with tracks of 2 rows, whose work
+    items stage the most V_inv slots (float64 at PC = 8 then needs
+    225,536 B of the card's 232,448 B a block)."""
     _need_card()
     dt = getattr(torch, dtype)
+    if layout == "table_edge":
+        for PC in (1, 8):
+            C = next(c for c in range(1, 10_000)
+                     if not k1.shared_table(c, PC, dt))
+            for cams in (C - 1, C):
+                _k1_holds(mixed_layout([8] * 5000 + [2] * 64, cams, PC, 6),
+                          dt)
+        return
     if layout == "many_cams":
         lay = mixed_layout([8] * 5000 + [3, 40, 300], 4000, 8, 3)
         assert not k1.shared_table(4000, 8, dt)

@@ -172,8 +172,9 @@ def test_point_slot_is_arithmetic_in_buckets(layout):
 
 
 def test_shared_table_branch():
-    """The shape rule of the kernel's camera sum: a shared-memory table up
-    to 48 KB (C <= 1,536 at PC = 8 in float32, 768 in float64), global
+    """The shape rule of the kernel's camera sum: a shared-memory table (the
+    accumulator padded to 16-byte words, and x) up to 96 KB (C <= 1,536 at
+    PC = 8 in float32, 768 in float64; 4,915 at PC = 1 in float32), global
     atomics above; chip_smoke.py's many_cams case (4,000 cameras) takes the
     global branch, the BA and GP shapes (200 cameras) the shared one."""
     assert k1.shared_table(200, 8, torch.float32)
@@ -183,6 +184,10 @@ def test_shared_table_branch():
     assert k1.shared_table(768, 8, torch.float64)
     assert not k1.shared_table(769, 8, torch.float64)
     assert not k1.shared_table(4000, 8, torch.float32)
+    assert k1.shared_table(4915, 1, torch.float32)
+    assert not k1.shared_table(4916, 1, torch.float32)
+    assert k1.shared_table(3510, 3, torch.float32)
+    assert not k1.shared_table(3511, 3, torch.float32)
 
 
 def test_launch_table_covers_every_row_once():
