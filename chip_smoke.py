@@ -3,7 +3,8 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # the check
-    python3 chip_smoke.py --profile  # also profile one BA LM and 3DGS step
+    python3 chip_smoke.py --profile  # also profile one BA LM step, the
+                                     # relative-pose stage and a 3DGS step
 
 Phases (any failure exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
@@ -21,14 +22,24 @@ Phases (any failure exits non-zero):
      step at the same size; launch counters prove both went through K1.
      The process's first ``torch.func.vmap(jacfwd)`` call, a one-time
      set-up cost of torch, is timed on its own just before;
-  5. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
+  5. SfM path: a seeded COLMAP database at the ETH3D-indoor scale (200
+     images on a ring, 20k points, each image matched with the next 12,
+     0.4 px noise, 8% outlier matches) goes through
+     ``read_colmap_database -> pipeline.mapper.solve_global_mapper``
+     (float32) ``-> write_reconstruction`` and the model is read back; it
+     must register every image within 1 degree and 1% of the extent of the
+     ground truth, and K1 must have run in global positioning and in bundle
+     adjustment and match its plain version on the first input each stage
+     gave it (one ``SFM`` line: seconds per stage, LM iterations, K1
+     launches and errors, host syncs, pose errors);
+  6. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
      (photos rendered by the port's rasterizer with SH degree 3, written as
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3.  K2/K3 are then held against their plain versions on one
      view's real tiles;
-  6. prints the kernels line, the card line and, last, the ok line.
+  7. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -46,17 +57,23 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch import config
+from instantsfm_tpu_torch.config import Config
 from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.gs import rasterize as gs_raster
 from instantsfm_tpu_torch.gs import sh as gs_sh
 from instantsfm_tpu_torch.gs import strategy as gs_strategy
 from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
 from instantsfm_tpu_torch.io import colmap_model as cmio
+from instantsfm_tpu_torch.io.colmap_db import (ColmapDatabase,
+                                               read_colmap_database)
 from instantsfm_tpu_torch.io.image import imwrite
 from instantsfm_tpu_torch.math import lie
-from instantsfm_tpu_torch.pipeline import ba
+from instantsfm_tpu_torch.pipeline import ba, preprocess, relpose, vgc
+from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
+from instantsfm_tpu_torch.pipeline.writer import write_reconstruction
 from instantsfm_tpu_torch.scene import cameras as cm
-from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
+from instantsfm_tpu_torch.scene.types import (CONFIG_CALIBRATED, Cameras,
+                                              Images, Tracks)
 from instantsfm_tpu_torch.solve import block_lm, robust
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import bucketize, bucketize_problem
@@ -906,6 +923,291 @@ def run_gp_step(device, gt):
     return rec
 
 
+# ------------------------------------------------------------ SfM path
+
+SFM_CAMS, SFM_POINTS, SFM_WINDOW = 200, 20_000, 12   # bench_e2e.py:26-28
+
+
+def write_ring_db(dbpath, num_cams=SFM_CAMS, num_pts=SFM_POINTS,
+                  window=SFM_WINDOW, seed=SEED, match_noise=0.4,
+                  outlier_frac=0.08, vis_angle=0.9):
+    """A seeded COLMAP database at the ETH3D-indoor scale (the scene of
+    ``bench_e2e.py::build_scene_db``, in numpy): ``num_cams`` SIMPLE_RADIAL
+    cameras (f 520, k1 0.01, 640x480) on a ring of radius 8 looking at a
+    6-unit cube of ``num_pts`` points, each camera seeing the points within
+    ``vis_angle`` radians of its own bearing; keypoints are the projections
+    plus ``match_noise`` px of noise; each camera is matched with the next
+    ``window`` on the ring (pairs with < 30 shared points are skipped), with
+    ``outlier_frac`` of every pair's matches redirected to random keypoints,
+    all pairs CALIBRATED.  Returns the ground truth (world->cam xyzw qvec,
+    tvec, centers) and the pair and match counts."""
+    rng = np.random.default_rng(seed)
+    f_px, cx, cy, k1_ = 520.0, 320.0, 240.0, 0.01
+    width, height = 640, 480
+    angles = np.linspace(0, 2 * np.pi, num_cams, endpoint=False)
+    centers = np.stack([8.0 * np.cos(angles), 8.0 * np.sin(angles),
+                        1.0 + 0.3 * rng.standard_normal(num_cams)], -1)
+    points = rng.uniform(-3.0, 3.0, (num_pts, 3))
+    pt_angle = np.arctan2(points[:, 1], points[:, 0])
+    Rs = np.stack([ring_rotation(c) for c in centers])
+    qvec = lie.matrix_to_quat(torch.as_tensor(Rs)).numpy()
+    tvec = -np.einsum("cij,cj->ci", Rs, centers)
+
+    kp, idx_of = [], []
+    for i in range(num_cams):
+        xyz = points @ Rs[i].T + tvec[i]
+        uv = xyz[:, :2] / (xyz[:, 2:3] + 1e-12)
+        xy = uv * (1.0 + k1_ * np.sum(uv * uv, 1, keepdims=True)) * f_px \
+            + np.array([cx, cy])
+        dang = np.abs(np.angle(np.exp(1j * (pt_angle - angles[i]))))
+        vis = ((xyz[:, 2] > 0.5) & (dang < vis_angle)
+               & (xy[:, 0] > 0) & (xy[:, 0] < width)
+               & (xy[:, 1] > 0) & (xy[:, 1] < height))
+        idx = np.nonzero(vis)[0]
+        kp.append(xy[idx] + match_noise * rng.standard_normal((len(idx), 2)))
+        idx_of.append(idx.astype(np.int32))
+
+    n_pairs = n_matches = 0
+    with ColmapDatabase.connect(dbpath) as db:
+        db.create_tables()
+        cam_id = db.add_camera(cm.SIMPLE_RADIAL, width, height,
+                               [f_px, cx, cy, k1_], prior_focal=True)
+        img_ids = [db.add_image(f"img{i:04d}.jpg", cam_id)
+                   for i in range(num_cams)]
+        for i in range(num_cams):
+            db.add_keypoints(img_ids[i], kp[i])
+        map_i = np.full(num_pts, -1, np.int32)   # point -> feature in image i
+        for i in range(num_cams):
+            map_i[:] = -1
+            map_i[idx_of[i]] = np.arange(len(idx_of[i]), dtype=np.int32)
+            for dj in range(1, window + 1):
+                j = (i + dj) % num_cams
+                fi_of_j = map_i[idx_of[j]]
+                both = fi_of_j >= 0
+                if int(both.sum()) < 30:
+                    continue
+                fi = fi_of_j[both]
+                fj = np.nonzero(both)[0].astype(np.int32)
+                # every ring edge once, lower image id first
+                a, b = (j, i) if j < i else (i, j)
+                m = np.stack([fj, fi] if j < i else [fi, fj], 1)
+                n_out = int(outlier_frac * len(m))
+                if n_out:
+                    sel = rng.choice(len(m), n_out, replace=False)
+                    m[sel, 1] = rng.integers(0, len(kp[b]), n_out)
+                db.add_matches(img_ids[a], img_ids[b], m)
+                db.add_two_view_geometry(img_ids[a], img_ids[b], m,
+                                         config=CONFIG_CALIBRATED)
+                n_pairs += 1
+                n_matches += len(m)
+        db.set_feature_name("colmap")
+    return dict(q=qvec, t=tvec, centers=centers), n_pairs, n_matches
+
+
+def sfm_errors(images, gt):
+    """Rotation errors (degrees, after removing the global rotation gauge)
+    and absolute center errors as a share of the ground-truth extent (after
+    Umeyama similarity alignment), over the registered images."""
+    reg = np.nonzero(images.registered)[0]
+    R_est = lie.quat_to_matrix(torch.as_tensor(images.qvec[reg])).numpy()
+    R_gt = lie.quat_to_matrix(torch.as_tensor(gt["q"][reg])).numpy()
+    U, _, Vt = np.linalg.svd(np.einsum("nji,njk->ik", R_est, R_gt))
+    S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U) * np.linalg.det(Vt))])
+    R_al = np.einsum("nij,jk->nik", R_est, U @ S @ Vt)
+    rot = np.degrees(np.arccos(np.clip(
+        (np.einsum("nij,nij->n", R_al, R_gt) - 1) / 2, -1.0, 1.0)))
+    c_est, c_gt = images.centers()[reg], gt["centers"][reg]
+    s, R, t = umeyama(c_est, c_gt)
+    ate = np.linalg.norm(s * c_est @ R.T + t - c_gt, axis=1)
+    extent = float(np.linalg.norm(c_gt.max(0) - c_gt.min(0)))
+    return rot, ate / extent
+
+
+def profile_relpose(dbpath, device):
+    """The relative-pose stage of the mapper once more, under torch.profiler:
+    its wall and device-busy time, and the calls and time of
+    ``torch.linalg.eigh`` (the 3x3 SVDs of ``math/epipolar.py::svd3x3``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    view_graph, cameras, images, feature_name = read_colmap_database(dbpath)
+    cfg = Config(feature_name)
+    preprocess.update_image_pairs_config(view_graph, cameras, images)
+    preprocess.decompose_relpose(view_graph, cameras, images)
+    vgc.solve_view_graph_calibration(
+        view_graph, cameras, images, cfg.VIEW_GRAPH_CALIBRATOR_OPTIONS,
+        dtype=torch.float32, device=device)
+    relpose.undistort_images(cameras, images, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        relpose.estimate_relative_pose(view_graph, cameras, images,
+                                       dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(ev.self_device_time_total for ev in events
+                  if ev.device_type == DeviceType.CUDA) / 1e3
+    eigh = [ev for ev in events if ev.key == "aten::linalg_eigh"]
+    host_top = sorted((ev for ev in events if ev.device_type == DeviceType.CPU
+                       and ev.key.startswith("aten::")),
+                      key=lambda ev: -ev.self_cpu_time_total)[:8]
+    batch = torch.randn((256, 3, 3), device=device)
+    batch = batch.transpose(-1, -2) @ batch
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        host_top=[dict(op=ev.key, n=ev.count,
+                       self_ms=ev.self_cpu_time_total / 1e3)
+                  for ev in host_top],
+        eigh_calls=sum(ev.count for ev in eigh),
+        eigh_host_ms=sum(ev.cpu_time_total for ev in eigh) / 1e3,
+        eigh_device_ms=sum(ev.device_time_total for ev in eigh) / 1e3,
+        eigh_ms_256x3x3=time_ms(lambda: torch.linalg.eigh(batch), 20,
+                                queued=False))
+
+
+def k1_sfm_check(stage, args, device):
+    """K1 against its plain version on one input the mapper gave it."""
+    W, V_inv, x, cam, pt, buckets = args
+    want = k1.schur_wchain_reference(*args)
+    got = k1.schur_wchain(*args)
+    torch.cuda.synchronize()
+    if not want.any():
+        raise AssertionError(f"K1 on the mapper's {stage} input: y is 0")
+    err, rel_err = k1_check(f"K1 on the mapper's {stage} input", got, want,
+                            k1_abs_sums(*args))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    return dict(PC=W.shape[1], rows=W.shape[0], points=V_inv.shape[0],
+                cams=x.shape[0], L=sorted({b[3] for b in buckets}),
+                max_abs_err=err, max_err_over_abs_sum=rel_err,
+                max_abs_y=want.abs().max().item(),
+                ms=time_ms(lambda: k1.schur_wchain(*args), 20, flush),
+                plain_ms=time_ms(lambda: k1.schur_wchain_reference(*args), 5,
+                                 flush),
+                bound_ms=k1_bound(W, V_inv, x, buckets)[0])
+
+
+def run_sfm(device, profile=False):
+    """The global SfM mapper at the ETH3D-indoor scale through the port's
+    entry points: a COLMAP database is written, read back, solved by
+    ``solve_global_mapper`` in float32 on the card and written as a sparse
+    model, which is read back and held against the ground truth.  The first
+    K1 input with x != 0 of global positioning and of bundle adjustment is
+    kept and K1 is held against its plain version on it.  ``profile`` also runs the
+    relative-pose stage once more under torch.profiler."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
+        dbpath = os.path.join(root, "database.db")
+        t0 = time.perf_counter()
+        gt, n_pairs, n_matches = write_ring_db(dbpath)
+        build_db_s = time.perf_counter() - t0
+        log(f"SfM scene: {SFM_CAMS} images, {SFM_POINTS} points, window "
+            f"{SFM_WINDOW}: {n_pairs} pairs, {n_matches} matches "
+            f"({build_db_s:.1f} s to write)")
+
+        launches_at, k1_inputs_at = {}, {}
+
+        def hook(name, *_):
+            launches_at[name] = k1.schur_wchain.launches
+
+        launch = block_lm.schur_wchain
+
+        def keep_first_input(*args):
+            # K1 runs only in GP and BA: before GP's hook, a call is GP's.
+            # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
+            stage = ("bundle_adjustment" if "global_positioning" in launches_at
+                     else "global_positioning")
+            if stage not in k1_inputs_at and bool(args[2].any()):
+                k1_inputs_at[stage] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+            return launch(*args)
+
+        debug.drain_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        block_lm.schur_wchain = keep_first_input
+        k1.schur_wchain.launches = 0
+        try:
+            t_start = time.perf_counter()
+            view_graph, cameras, images, feature_name = read_colmap_database(
+                dbpath)
+            db_read_s = time.perf_counter() - t_start
+            cameras, images, tracks, timings = solve_global_mapper(
+                view_graph, cameras, images, Config(feature_name),
+                dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
+                device=device)
+            t0 = time.perf_counter()
+            out = os.path.join(root, "sparse")
+            write_reconstruction(out, cameras, images, tracks)
+            write_s = time.perf_counter() - t0
+            total_s = time.perf_counter() - t_start
+        finally:
+            block_lm.schur_wchain = launch
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = k1.schur_wchain.launches
+        stats = debug.drain_stats()
+        t0 = time.perf_counter()
+        cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(out, "0"))
+        read_model_s = time.perf_counter() - t0
+        relpose_prof = None
+        if profile:
+            t0 = time.perf_counter()
+            relpose_prof = profile_relpose(dbpath, device)
+            relpose_prof["seconds"] = time.perf_counter() - t0
+
+    # launches made here to compare K1 with its plain version are not counted
+    k1_sfm = {stage: k1_sfm_check(stage, args, device)
+              for stage, args in k1_inputs_at.items()}
+    del k1_inputs_at
+    rot, ate = sfm_errors(images, gt)
+    gp_launches = launches_at.get("global_positioning", 0)
+    ba_launches = launches_at.get("bundle_adjustment", gp_launches) - gp_launches
+    ra_syncs = stats.get("ra_syncs", [])
+    rec = dict(
+        images=SFM_CAMS, points=SFM_POINTS, pairs=n_pairs, matches=n_matches,
+        db_read_s=db_read_s, stage_s=timings, write_s=write_s,
+        total_s=total_s, build_db_s=build_db_s, read_model_s=read_model_s,
+        peak_device_gb=peak_gb,
+        registered=int(images.registered.sum()),
+        tracks=int(tracks.num_tracks),
+        observations=int(tracks.num_observations),
+        model_images=len(imgs_m), model_points=len(pts_m),
+        gp_lm_iters=stats.get("gp_lm_iters"),
+        ba_lm_iters=stats.get("ba_lm_iters"),
+        k1_launches_gp=gp_launches, k1_launches_ba=ba_launches,
+        k1_launches_total=launches,
+        k1_max_abs_err_gp=k1_sfm.get("global_positioning", {}).get(
+            "max_abs_err"),
+        k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
+            "max_abs_err"),
+        k1_on_mapper_inputs=k1_sfm,
+        ra_syncs=ra_syncs,
+        ra_syncs_total=sum(sum(d.values()) for d in ra_syncs),
+        vgc_syncs=stats.get("vgc_syncs"), relpose_profile=relpose_prof,
+        rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
+        ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
+        card=card_line())
+    log("SFM " + json.dumps(rec))
+    checks = {
+        f"{SFM_CAMS}/{SFM_CAMS} images registered":
+            rec["registered"] == SFM_CAMS,
+        "model read back has every image": len(imgs_m) == SFM_CAMS,
+        "model read back has every track": len(pts_m) == rec["tracks"],
+        "max rotation error < 1 degree": rec["rot_err_deg_max"] < 1.0,
+        "max ATE < 1% of the extent": rec["ate_rel_max"] < 0.01,
+        "K1 launched in global positioning": gp_launches > 0,
+        "K1 launched in bundle adjustment": ba_launches > 0,
+        "K1 launched only in those stages": launches == gp_launches + ba_launches,
+        "K1 held against its plain version on a GP and a BA input":
+            set(k1_sfm) == {"global_positioning", "bundle_adjustment"},
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"SfM main path failed: {failed}")
+    return rec
+
+
 # ------------------------------------------------------------ 3DGS path
 
 def make_gs_scene(root, device, num_pts, num_views, W, H, seed=SEED):
@@ -1149,7 +1451,7 @@ def kernel_entry(name, source, replaces, launches, case, **extra):
                 ["seconds"], **extra)
 
 
-def k1_entry(cases, ba_rec, gp_rec):
+def k1_entry(cases, ba_rec, gp_rec, sfm_rec):
     main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
                      and c["dtype"] == "float32")
     f32_cases = [c for c in cases if c["dtype"] == "float32"]
@@ -1159,6 +1461,10 @@ def k1_entry(cases, ba_rec, gp_rec):
         main_case,
         replaces_fn="instantsfm_tpu/solve/pallas_schur.py::schur_wchain",
         launches_gp_step=gp_rec["k1_launches"],
+        launches_sfm_gp=sfm_rec["k1_launches_gp"],
+        launches_sfm_ba=sfm_rec["k1_launches_ba"],
+        max_abs_err_sfm_gp=sfm_rec["k1_max_abs_err_gp"],
+        max_abs_err_sfm_ba=sfm_rec["k1_max_abs_err_ba"],
         bound_ms_unfused=main_case["bound_ms_unfused"],
         index_add_ms=main_case["index_add_ms"],
         index_add_ms_warm_l2=main_case["index_add_ms_warm_l2"],
@@ -1190,8 +1496,9 @@ def k23_entry(which, main_case, hand_cases, gs_rec):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one BA LM step and one 3DGS training "
-                         "step (torch.profiler)")
+                    help="also profile one BA LM step, the mapper's "
+                         "relative-pose stage and one 3DGS training step "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1230,12 +1537,13 @@ def main(argv=None):
     ba_rec, gt = run_ba(device)
     debug.ENABLED = False
     gp_rec = run_gp_step(device, gt)
+    sfm_rec = run_sfm(device, profile=args.profile)
     if args.profile:
         profile_ba_step(device)
     gs_rec, tiles = run_gs(device, profile=args.profile)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
-    kernels = [k1_entry(k1_cases, ba_rec, gp_rec)] + [
+    kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec)] + [
         k23_entry(which, k23_main[which], k23_hand, gs_rec)
         for which in (0, 1)]
     log(f"card: {card}")

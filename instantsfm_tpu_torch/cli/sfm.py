@@ -1,0 +1,80 @@
+"""``ins-sfm`` equivalent: COLMAP database -> global SfM -> sparse model.
+
+Counterpart of ``instantsfm_tpu/cli/sfm.py``:
+
+    python -m instantsfm_tpu_torch.cli.sfm --data_path SCENE [--f32]
+        [--export_txt] [--device cuda|cpu]
+
+SCENE holds ``database.db`` (and optionally ``images/`` for point colors
+and ``depth/``); the model is written to ``SCENE/sparse/0``.  The solve
+runs in float64 unless ``--f32``.  ``--enable_gui`` and ``--record_recon``
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--data_path", required=True)
+    parser.add_argument("--export_txt", action="store_true")
+    parser.add_argument("--disable_depths", action="store_true")
+    parser.add_argument("--enable_gui", action="store_true",
+                        help="serve a live view of the reconstruction")
+    parser.add_argument("--record_recon", action="store_true",
+                        help="record per-step reconstruction snapshots")
+    parser.add_argument("--record_path", default=None)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--f32", action="store_true",
+                        help="solve in float32 (default float64)")
+    args = parser.parse_args(argv)
+    if args.enable_gui or args.record_recon:
+        raise NotImplementedError(
+            "--enable_gui / --record_recon: the visualizer (vis/) is not "
+            "ported yet (ROADMAP queue 1, item 9)")
+
+    from instantsfm_tpu_torch.config import Config
+    from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
+    from instantsfm_tpu_torch.pipeline.data_reader import (
+        read_data, read_depths_into_features)
+    from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
+    from instantsfm_tpu_torch.pipeline.writer import write_reconstruction
+    from instantsfm_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    dtype = torch.float32 if args.f32 else torch.float64
+    path_info = read_data(args.data_path)
+    if not path_info.database_exists:
+        print(f"No database.db found under {args.data_path}", file=sys.stderr)
+        return 1
+
+    view_graph, cameras, images, feature_name = read_colmap_database(
+        path_info.database_path)
+    print(f"Read {images.num_images} images, {view_graph.num_pairs} pairs "
+          f"({feature_name} features); device={device} dtype={dtype}")
+
+    depths_available = False
+    if path_info.depth_path and not args.disable_depths:
+        depths_available = read_depths_into_features(
+            path_info.depth_path, cameras, images)
+
+    t0 = time.time()
+    cameras, images, tracks, _ = solve_global_mapper(
+        view_graph, cameras, images, Config(feature_name),
+        depths_available=depths_available, dtype=dtype, device=device)
+    print(f"Reconstruction done in {time.time() - t0:.2f} seconds")
+
+    write_reconstruction(path_info.output_path, cameras, images, tracks,
+                         path_info.image_path, export_txt=args.export_txt)
+    print(f"Reconstruction written to {path_info.output_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

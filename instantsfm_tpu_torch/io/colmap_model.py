@@ -1,9 +1,9 @@
 """COLMAP sparse-model I/O (cameras/images/points3D, .bin and .txt).
 
-Counterpart of the per-record readers and writers of
-``instantsfm_tpu/io/colmap_model.py`` (everything ``read_model`` and
-``write_model`` reach), in numpy and ``struct``; the camera-model table is
-the port's ``scene/cameras.py``.
+Counterpart of ``instantsfm_tpu/io/colmap_model.py``: the per-record
+readers and writers (everything ``read_model`` and ``write_model`` reach)
+and the SoA binary writers of the mapper's export, in numpy and ``struct``;
+the camera-model table is the port's ``scene/cameras.py``.
 
 Binary layout (little-endian):
   cameras.bin : u64 count, then per camera: i32 id, i32 model, u64 w, u64 h,
@@ -161,6 +161,82 @@ def write_points3D_binary(pts: List[ModelPoint3D], path) -> None:
             _write(f, "Q", len(p.image_ids))
             for iid, p2d in zip(p.image_ids, p.point2D_idxs):
                 _write(f, "ii", int(iid), int(p2d))
+
+
+# ------------------------------------------- vectorized (SoA) binary writers
+#
+# The per-object writers above loop per record / per track element with
+# struct.pack — fine for small models, slow for large ones (the JAX
+# package's notes: ~35 s for 864k points / 6.7M track elements).  These
+# paths serialize straight from the
+# pipeline's flat SoA arrays: fixed-size record headers as one numpy
+# structured array, variable-length tails interleaved with two broadcasted
+# byte scatters into a single output buffer.
+
+_PT3D_HDR = np.dtype([("id", "<u8"), ("xyz", "<f8", (3,)),
+                      ("rgb", "u1", (3,)), ("err", "<f8"), ("tlen", "<u8")])
+_PT3D_ELEM = np.dtype([("iid", "<i4"), ("p2d", "<i4")])
+_IMG_KP = np.dtype([("x", "<f8"), ("y", "<f8"), ("pid", "<i8")])
+
+
+def write_points3D_binary_soa(path, ids, xyz, rgb, errors, obs_offset,
+                              image_ids, point2D_idxs) -> None:
+    """points3D.bin from flat arrays: ids [T], xyz [T,3], rgb [T,3] u8,
+    errors [T], obs_offset [T+1], image_ids/point2D_idxs [O]."""
+    T = len(ids)
+    tlen = np.diff(obs_offset).astype(np.int64)
+    O = int(obs_offset[-1])
+    hdr = np.empty(T, _PT3D_HDR)
+    hdr["id"] = ids
+    hdr["xyz"] = xyz
+    hdr["rgb"] = rgb
+    hdr["err"] = errors
+    hdr["tlen"] = tlen
+
+    hsz = _PT3D_HDR.itemsize                      # 51
+    rec = hsz + 8 * tlen
+    starts = np.empty(T, np.int64)
+    if T:
+        starts[0] = 8
+        np.cumsum(rec[:-1], out=starts[1:]) if T > 1 else None
+        if T > 1:
+            starts[1:] += 8
+    buf = np.empty(8 + int(rec.sum()), np.uint8)
+    buf[:8] = np.frombuffer(struct.pack("<Q", T), np.uint8)
+    if T:
+        buf[starts[:, None] + np.arange(hsz)] = \
+            hdr.view(np.uint8).reshape(T, hsz)
+    if O:
+        elem = np.empty(O, _PT3D_ELEM)
+        elem["iid"] = image_ids
+        elem["p2d"] = point2D_idxs
+        estart = (np.repeat(starts + hsz, tlen)
+                  + 8 * (np.arange(O) - np.repeat(obs_offset[:-1], tlen)))
+        buf[estart[:, None] + np.arange(8)] = \
+            elem.view(np.uint8).reshape(O, 8)
+    with open(path, "wb") as f:
+        buf.tofile(f)
+
+
+def write_images_binary_soa(path, ids, qvec_wxyz, tvec, camera_ids, names,
+                            kp_xy, kp_offset, point3D_ids) -> None:
+    """images.bin from flat arrays: per-image header loop (images are few),
+    per-keypoint rows serialized as one structured array per image."""
+    chunks = [struct.pack("<Q", len(ids))]
+    for k, iid in enumerate(ids):
+        s, e = int(kp_offset[k]), int(kp_offset[k + 1])
+        chunks.append(struct.pack(
+            "<idddddddi", int(iid), *[float(v) for v in qvec_wxyz[k]],
+            *[float(v) for v in tvec[k]], int(camera_ids[k])))
+        chunks.append(names[k].encode("utf-8") + b"\x00")
+        chunks.append(struct.pack("<Q", e - s))
+        row = np.empty(e - s, _IMG_KP)
+        row["x"] = kp_xy[s:e, 0]
+        row["y"] = kp_xy[s:e, 1]
+        row["pid"] = point3D_ids[s:e]
+        chunks.append(row.tobytes())
+    with open(path, "wb") as f:
+        f.write(b"".join(chunks))
 
 
 # ------------------------------------------------------------------ text I/O

@@ -24,6 +24,10 @@ def quat_normalize(q):
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
 
 
+def quat_conj(q):
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
 def quat_mul(q1, q2):
     """Hamilton product, scalar-last convention."""
     x1, y1, z1, w1 = q1.unbind(-1)
@@ -42,6 +46,10 @@ def quat_rotate(q, v):
     w = q[..., 3:4]
     uv = _cross(u, v)
     return v + 2.0 * (w * uv + _cross(u, uv))
+
+
+def quat_rotate_inv(q, v):
+    return quat_rotate(quat_conj(q), v)
 
 
 def quat_to_matrix(q):
@@ -101,9 +109,41 @@ def so3_exp(w):
     return torch.cat([w * k, cw], dim=-1)
 
 
+def so3_log(q):
+    """Quaternion (..., 4) -> axis-angle (..., 3); Taylor-safe near identity."""
+    q = torch.where(q[..., 3:4] < 0, -q, q)             # shortest arc
+    u = q[..., :3]
+    w = q[..., 3]
+    n_sq = torch.sum(u * u, dim=-1)
+    n = torch.sqrt(n_sq.clamp_min(_EPS))
+    angle = 2.0 * torch.atan2(n, w)
+    small = n_sq < 1e-12
+    scale = torch.where(small, 2.0 / w.clamp_min(_EPS), angle / n)
+    return u * scale[..., None]
+
+
+def rotvec_to_matrix(w):
+    return quat_to_matrix(so3_exp(w))
+
+
+def matrix_to_rotvec(m):
+    return so3_log(matrix_to_quat(m))
+
+
 def se3_action(q, t, p):
     """Apply world->cam transform: R(q) p + t."""
     return quat_rotate(q, p) + t
+
+
+def camera_center(q, t):
+    """Center c = -R^T t for world->cam (q, t)."""
+    return -quat_rotate_inv(q, t)
+
+
+def rotation_geodesic_angle(q1, q2):
+    """Angle in radians between two rotations given as quaternions."""
+    d = torch.abs(torch.sum(q1 * q2, dim=-1)).clamp(0.0, 1.0)
+    return 2.0 * torch.arccos(d)
 
 
 def se3_retract(q, t, delta):
@@ -134,3 +174,8 @@ def quat_rotate_inv_np(q, v):
 def se3_action_np(q, t, p):
     """numpy twin of ``se3_action``: R(q) p + t."""
     return quat_rotate_np(q, p) + t
+
+
+def quat_to_matrix_np(q):
+    """numpy twin of ``quat_to_matrix``."""
+    return quat_to_matrix(torch.as_tensor(np.asarray(q, np.float64))).numpy()

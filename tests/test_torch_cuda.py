@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain torch
-versions, and the BA stage and the 3DGS render and training path on the
-card against the same code on the CPU.
+versions, and the BA stage, the SfM mapper and the 3DGS render and
+training path on the card against the same code on the CPU.
 
 This file imports neither JAX nor the JAX package, so on the card machine
 (which has no JAX) it runs without the suite's conftest:
@@ -283,3 +283,41 @@ def test_gs_runner_card_matches_cpu(tmp_path):
         launched = k23.composite_fwd.launches - f0
     assert launched == 3
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mapper_card_matches_cpu(tmp_path):
+    """The global mapper on a 14-image ring database
+    (``chip_smoke.write_ring_db``: 600 points, each image matched with the
+    next 6) on the card against the CPU, both float64, the RANSAC draws from one seeded CPU generator moved
+    to the card: the same registered images and tracks, poses and points
+    within 1e-6 (quaternions up to sign; centers and points relative to the
+    scene extent: sums in other orders).  At this size global positioning
+    and bundle adjustment take the dense Schur solve (C * PC <= 2048 and
+    T <= 8192, as in the JAX package), so K1 does not run here; it runs in
+    ``chip_smoke.py``'s SfM phase."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.config import Config
+    from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
+    from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
+
+    db = str(tmp_path / "database.db")
+    chip_smoke.write_ring_db(db, num_cams=14, num_pts=600, window=6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        vg, cams, imgs, name = read_colmap_database(db)
+        out[dev] = solve_global_mapper(vg, cams, imgs, Config(name),
+                                       log=lambda *a: None, device=dev)
+    _, ic, tc, _ = out["cpu"]
+    _, ig, tg, _ = out["cuda"]
+    assert ic.registered.sum() == 14
+    assert np.array_equal(ig.registered, ic.registered)
+    assert tg.num_tracks == tc.num_tracks > 100
+    assert np.array_equal(tg.obs_image, tc.obs_image)
+    dq = np.minimum(np.abs(ig.qvec - ic.qvec).max(1),
+                    np.abs(ig.qvec + ic.qvec).max(1))
+    assert np.max(dq) < 1e-6
+    extent = np.linalg.norm(ic.centers().max(0) - ic.centers().min(0))
+    assert np.max(np.abs(ig.centers() - ic.centers())) < 1e-6 * extent
+    assert np.max(np.abs(tg.xyz - tc.xyz)) < 1e-6 * extent

@@ -49,6 +49,21 @@ LIE_CASES = {
     "se3_retract": lambda m, r: (m.se3_retract, [
         _quats(r, 16), r.standard_normal((16, 3)),
         0.1 * r.standard_normal((16, 6))]),
+    "quat_conj": lambda m, r: (m.quat_conj, [_quats(r, 16)]),
+    "quat_rotate_inv": lambda m, r: (m.quat_rotate_inv, [
+        _quats(r, 16), r.standard_normal((16, 3))]),
+    # both hemispheres, and rotations below the Taylor switch
+    "so3_log": lambda m, r: (m.so3_log, [np.concatenate(
+        [_quats(r, 14), [[1e-7, -2e-7, 3e-8, 1.0], [-1e-7, 0, 0, -1.0]]])]),
+    "camera_center": lambda m, r: (m.camera_center, [
+        _quats(r, 16), r.standard_normal((16, 3))]),
+    "rotation_geodesic_angle": lambda m, r: (m.rotation_geodesic_angle, [
+        _quats(r, 16), _quats(r, 16)]),
+    "rotvec_to_matrix": lambda m, r: (m.rotvec_to_matrix, [
+        r.standard_normal((16, 3))]),
+    "matrix_to_rotvec": lambda m, r: (
+        m.matrix_to_rotvec,
+        [np.asarray(jlie.quat_to_matrix(jnp.asarray(_quats(r, 16))))]),
 }
 
 
@@ -107,3 +122,14 @@ def test_model_info_and_pad_params_match():
     assert tcm.CAMERA_MODEL_INFO == jcm.CAMERA_MODEL_INFO
     np.testing.assert_array_equal(tcm.pad_params([1.0, 2.0]),
                                   jcm.pad_params([1.0, 2.0]))
+
+
+def test_world2cam_matches_jax(rng):
+    from instantsfm_tpu.scene import types as jtypes
+    from instantsfm_tpu_torch.scene import types as ttypes
+    fields = (np.zeros(4, np.int32), [f"{i}" for i in range(4)], _quats(rng, 4),
+              rng.standard_normal((4, 3)), np.ones(4, bool),
+              np.zeros(4, np.int32), np.zeros((0, 2)), np.zeros(5, np.int64))
+    ji, ti = jtypes.Images(*fields), ttypes.Images(*fields)
+    for i in range(4):
+        _close(ti.world2cam(i), ji.world2cam(i))
