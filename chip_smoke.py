@@ -32,14 +32,34 @@ Phases (any failure exits non-zero):
      adjustment and match its plain version on the first input each stage
      gave it (one ``SFM`` line: seconds per stage, LM iterations, K1
      launches and errors, host syncs, pose errors);
-  6. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
+  6. SfM with retriangulation and pruning: the same database through the
+     mapper with both stages on (float32); it must register every image
+     within 1 degree and 1% of the extent, give at least 180 of the 200
+     images a cluster id, and launch K1 at PC = 2 in retriangulation's
+     frozen-pose BA, where K1 is held against its plain version on the
+     first such input (one ``SFM_RETRI`` line: seconds of retriangulation
+     and pruning, refinement rounds and changed shares, clusters, K1
+     launches per stage, the PC > 8 plain-route calls);
+  7. pixels to poses: ``tests/test_pixels_e2e.py``'s scene (four textured
+     planes) rendered by the port's rasterizer in 16 views at 480x360 and
+     written as PNG, then ``cli.feat`` (SIFT and matching on the card) and
+     ``cli.sfm`` on the card; ``sparse/0`` must register 15 of 16 views
+     with more than 300 points, ATE < 2% of the extent and rotation
+     errors < 0.5 degree (``PIXELS`` line: extraction, matching and mapper
+     seconds);
+  8. feature throughput: 200 views of that scene at 640x480,
+     ``generate_database`` with 4,096 keypoints an image and exhaustive
+     matching, 19,900 pairs (``FEAT`` line: extraction and matching
+     seconds, peak device memory, matching's bound), then one mapper pass
+     over that database (registered views and pose errors, no bar);
+  9. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
      (photos rendered by the port's rasterizer with SH degree 3, written as
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3.  K2/K3 are then held against their plain versions on one
      view's real tiles;
-  7. prints the kernels line, the card line and, last, the ok line.
+  10. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -828,7 +848,7 @@ def run_ba(device):
 
     debug.drain_stats()
     torch.cuda.synchronize()
-    k1.schur_wchain.launches = 0
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
     t0 = time.perf_counter()
     tracks_out = ba.bundle_adjustment_rounds(
         cameras, images, tracks, opts, thr, rounds=3, dtype=torch.float32,
@@ -853,7 +873,9 @@ def run_ba(device):
                first_step_ms=step_ms[0],
                median_later_step_ms=float(np.median(step_ms[1:])),
                step_ms=step_ms,
-               k1_launches=launches, cost_before=cost0, cost_after=cost1,
+               k1_launches=launches,
+               k1_plain_calls=k1.schur_wchain.plain_calls,
+               cost_before=cost0, cost_after=cost1,
                rot_err_deg_before=rot0, rot_err_deg_after=rot1,
                center_err_rel_before=cen0, center_err_rel_after=cen1,
                obs_kept=int(tracks_out.num_observations))
@@ -1009,14 +1031,19 @@ def sfm_errors(images, gt):
     and absolute center errors as a share of the ground-truth extent (after
     Umeyama similarity alignment), over the registered images."""
     reg = np.nonzero(images.registered)[0]
-    R_est = lie.quat_to_matrix(torch.as_tensor(images.qvec[reg])).numpy()
-    R_gt = lie.quat_to_matrix(torch.as_tensor(gt["q"][reg])).numpy()
+    return aligned_errors(images.qvec[reg], images.centers()[reg],
+                          gt["q"][reg], gt["centers"][reg])
+
+
+def aligned_errors(q_est, c_est, q_gt, c_gt):
+    """``sfm_errors`` for world->cam xyzw quaternions and centers."""
+    R_est = lie.quat_to_matrix(torch.as_tensor(q_est)).numpy()
+    R_gt = lie.quat_to_matrix(torch.as_tensor(q_gt)).numpy()
     U, _, Vt = np.linalg.svd(np.einsum("nji,njk->ik", R_est, R_gt))
     S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U) * np.linalg.det(Vt))])
     R_al = np.einsum("nij,jk->nik", R_est, U @ S @ Vt)
     rot = np.degrees(np.arccos(np.clip(
         (np.einsum("nij,nij->n", R_al, R_gt) - 1) / 2, -1.0, 1.0)))
-    c_est, c_gt = images.centers()[reg], gt["centers"][reg]
     s, R, t = umeyama(c_est, c_gt)
     ate = np.linalg.norm(s * c_est @ R.T + t - c_gt, axis=1)
     extent = float(np.linalg.norm(c_gt.max(0) - c_gt.min(0)))
@@ -1089,72 +1116,72 @@ def k1_sfm_check(stage, args, device):
                 bound_ms=k1_bound(W, V_inv, x, buckets)[0])
 
 
-def run_sfm(device, profile=False):
+def run_sfm(device, root, profile=False):
     """The global SfM mapper at the ETH3D-indoor scale through the port's
-    entry points: a COLMAP database is written, read back, solved by
-    ``solve_global_mapper`` in float32 on the card and written as a sparse
-    model, which is read back and held against the ground truth.  The first
-    K1 input with x != 0 of global positioning and of bundle adjustment is
-    kept and K1 is held against its plain version on it.  ``profile`` also runs the
-    relative-pose stage once more under torch.profiler."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
-        dbpath = os.path.join(root, "database.db")
+    entry points: a COLMAP database is written in ``root``, read back,
+    solved by ``solve_global_mapper`` in float32 on the card and written as
+    a sparse model, which is read back and held against the ground truth.
+    The first K1 input with x != 0 of global positioning and of bundle
+    adjustment is kept and K1 is held against its plain version on it.
+    ``profile`` also runs the relative-pose stage once more under
+    torch.profiler.  Returns (SFM record, ground truth, database path)."""
+    dbpath = os.path.join(root, "database.db")
+    t0 = time.perf_counter()
+    gt, n_pairs, n_matches = write_ring_db(dbpath)
+    build_db_s = time.perf_counter() - t0
+    log(f"SfM scene: {SFM_CAMS} images, {SFM_POINTS} points, window "
+        f"{SFM_WINDOW}: {n_pairs} pairs, {n_matches} matches "
+        f"({build_db_s:.1f} s to write)")
+
+    launches_at, k1_inputs_at = {}, {}
+
+    def hook(name, *_):
+        launches_at[name] = k1.schur_wchain.launches
+
+    launch = block_lm.schur_wchain
+
+    def keep_first_input(*args):
+        # K1 runs only in GP and BA: before GP's hook, a call is GP's.
+        # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
+        stage = ("bundle_adjustment" if "global_positioning" in launches_at
+                 else "global_positioning")
+        if stage not in k1_inputs_at and bool(args[2].any()):
+            k1_inputs_at[stage] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        return launch(*args)
+
+    debug.drain_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_lm.schur_wchain = keep_first_input
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
+    try:
+        t_start = time.perf_counter()
+        view_graph, cameras, images, feature_name = read_colmap_database(
+            dbpath)
+        db_read_s = time.perf_counter() - t_start
+        cameras, images, tracks, timings = solve_global_mapper(
+            view_graph, cameras, images, Config(feature_name),
+            dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
+            device=device)
         t0 = time.perf_counter()
-        gt, n_pairs, n_matches = write_ring_db(dbpath)
-        build_db_s = time.perf_counter() - t0
-        log(f"SfM scene: {SFM_CAMS} images, {SFM_POINTS} points, window "
-            f"{SFM_WINDOW}: {n_pairs} pairs, {n_matches} matches "
-            f"({build_db_s:.1f} s to write)")
-
-        launches_at, k1_inputs_at = {}, {}
-
-        def hook(name, *_):
-            launches_at[name] = k1.schur_wchain.launches
-
-        launch = block_lm.schur_wchain
-
-        def keep_first_input(*args):
-            # K1 runs only in GP and BA: before GP's hook, a call is GP's.
-            # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
-            stage = ("bundle_adjustment" if "global_positioning" in launches_at
-                     else "global_positioning")
-            if stage not in k1_inputs_at and bool(args[2].any()):
-                k1_inputs_at[stage] = tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args)
-            return launch(*args)
-
-        debug.drain_stats()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        block_lm.schur_wchain = keep_first_input
-        k1.schur_wchain.launches = 0
-        try:
-            t_start = time.perf_counter()
-            view_graph, cameras, images, feature_name = read_colmap_database(
-                dbpath)
-            db_read_s = time.perf_counter() - t_start
-            cameras, images, tracks, timings = solve_global_mapper(
-                view_graph, cameras, images, Config(feature_name),
-                dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
-                device=device)
-            t0 = time.perf_counter()
-            out = os.path.join(root, "sparse")
-            write_reconstruction(out, cameras, images, tracks)
-            write_s = time.perf_counter() - t0
-            total_s = time.perf_counter() - t_start
-        finally:
-            block_lm.schur_wchain = launch
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = k1.schur_wchain.launches
-        stats = debug.drain_stats()
+        out = os.path.join(root, "sparse")
+        write_reconstruction(out, cameras, images, tracks)
+        write_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t_start
+    finally:
+        block_lm.schur_wchain = launch
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = k1.schur_wchain.launches
+    stats = debug.drain_stats()
+    t0 = time.perf_counter()
+    cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(out, "0"))
+    read_model_s = time.perf_counter() - t0
+    relpose_prof = None
+    if profile:
         t0 = time.perf_counter()
-        cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(out, "0"))
-        read_model_s = time.perf_counter() - t0
-        relpose_prof = None
-        if profile:
-            t0 = time.perf_counter()
-            relpose_prof = profile_relpose(dbpath, device)
-            relpose_prof["seconds"] = time.perf_counter() - t0
+        relpose_prof = profile_relpose(dbpath, device)
+        relpose_prof["seconds"] = time.perf_counter() - t0
 
     # launches made here to compare K1 with its plain version are not counted
     k1_sfm = {stage: k1_sfm_check(stage, args, device)
@@ -1177,6 +1204,7 @@ def run_sfm(device, profile=False):
         ba_lm_iters=stats.get("ba_lm_iters"),
         k1_launches_gp=gp_launches, k1_launches_ba=ba_launches,
         k1_launches_total=launches,
+        k1_plain_calls=k1.schur_wchain.plain_calls,
         k1_max_abs_err_gp=k1_sfm.get("global_positioning", {}).get(
             "max_abs_err"),
         k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
@@ -1205,6 +1233,329 @@ def run_sfm(device, profile=False):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"SfM main path failed: {failed}")
+    return rec, gt, dbpath
+
+
+def run_sfm_retri(device, dbpath, gt):
+    """The mapper once more on the SfM phase's database, with
+    retriangulation and pruning on (float32 on the card).  The first K1
+    input with x != 0 at PC = 2 (the frozen-pose BA of retriangulation on
+    SIMPLE_RADIAL cameras) is kept and K1 is held against its plain version
+    on it.  Returns the SFM_RETRI record."""
+    launches_at, retri_input, retri_by_pc = {}, {}, {}
+
+    def hook(name, *_):
+        launches_at[name] = k1.schur_wchain.launches
+
+    launch = block_lm.schur_wchain
+
+    def keep_pc2_input(*args):
+        PC = args[0].shape[1]
+        in_retri = "bundle_adjustment" in launches_at
+        if in_retri and PC == 2 and not retri_input and bool(args[2].any()):
+            retri_input["args"] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        before = k1.schur_wchain.launches
+        out = launch(*args)
+        if in_retri:
+            retri_by_pc[PC] = (retri_by_pc.get(PC, 0)
+                               + k1.schur_wchain.launches - before)
+        return out
+
+    cfg = Config("colmap")
+    cfg.OPTIONS.update(skip_retriangulation=False, skip_pruning=False)
+    debug.drain_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_lm.schur_wchain = keep_pc2_input
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
+    try:
+        t0 = time.perf_counter()
+        view_graph, cameras, images, feature_name = read_colmap_database(dbpath)
+        cameras, images, tracks, timings = solve_global_mapper(
+            view_graph, cameras, images, cfg, dtype=torch.float32,
+            log=lambda *a: None, stage_hook=hook, device=device)
+        total_s = time.perf_counter() - t0
+    finally:
+        block_lm.schur_wchain = launch
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = k1.schur_wchain.launches
+    plain_calls = k1.schur_wchain.plain_calls
+    stats = debug.drain_stats()
+
+    k1_pc2 = (k1_sfm_check("retriangulation (PC = 2)", retri_input["args"],
+                           device) if retri_input else None)
+    rot, ate = sfm_errors(images, gt)
+    gp = launches_at.get("global_positioning", 0)
+    ba_ = launches_at.get("bundle_adjustment", gp)
+    retri = launches_at.get("retriangulation", ba_)
+    clusters = images.cluster_id[images.cluster_id >= 0]
+    rec = dict(
+        images=SFM_CAMS, stage_s=timings, total_s=total_s,
+        peak_device_gb=peak_gb, registered=int(images.registered.sum()),
+        tracks=int(tracks.num_tracks),
+        observations=int(tracks.num_observations),
+        retri_s=timings.get("retriangulation"),
+        pruning_s=timings.get("pruning"),
+        refinement_rounds=len(stats.get("retri_changed_share", [])),
+        changed_share=stats.get("retri_changed_share"),
+        ba_lm_iters=stats.get("ba_lm_iters"),
+        clusters=int(len(np.unique(clusters))),
+        images_per_cluster=np.bincount(clusters).tolist(),
+        images_in_clusters=int(len(clusters)),
+        k1_launches_gp=gp, k1_launches_ba=ba_ - gp,
+        k1_launches_retri=retri - ba_, k1_launches_retri_by_pc=retri_by_pc,
+        k1_launches_total=launches, k1_plain_calls=plain_calls,
+        k1_on_retri_pc2_input=k1_pc2,
+        rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
+        ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
+        card=card_line())
+    log("SFM_RETRI " + json.dumps(rec))
+    checks = {
+        f"{SFM_CAMS}/{SFM_CAMS} images registered":
+            rec["registered"] == SFM_CAMS,
+        "max rotation error < 1 degree": rec["rot_err_deg_max"] < 1.0,
+        "max ATE < 1% of the extent": rec["ate_rel_max"] < 0.01,
+        "at least 90% of the images (180 of 200) carry a cluster id":
+            rec["images_in_clusters"] >= 0.9 * SFM_CAMS,
+        "retriangulation ran at least one refinement round":
+            rec["refinement_rounds"] >= 1,
+        "K1 launched at PC = 2 in retriangulation":
+            retri_by_pc.get(2, 0) > 0,
+        "K1 held against its plain version on a PC = 2 input":
+            k1_pc2 is not None and k1_pc2["PC"] == 2,
+        "K1 launched only in GP, BA and retriangulation": launches == retri,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"SfM with retriangulation and pruning "
+                             f"failed: {failed}")
+    return rec
+
+
+# ------------------------------------------------------------ pixels path
+
+PIX_VIEWS, PIX_W, PIX_H, PIX_F = 16, 480, 360, 400.0   # test_pixels_e2e.py
+FEAT_VIEWS, FEAT_W, FEAT_H, FEAT_KEYPOINTS = 200, 640, 480, 4096
+
+
+def look_at(center, target, up=(0, 1e-4, 1)):
+    """World->camera rotation (rows x, y, z) of a camera at ``center``
+    looking at ``target``."""
+    z = target - center
+    z = z / np.linalg.norm(z)
+    x = np.cross(np.asarray(up, float), z)
+    x = x / np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z], axis=0)
+
+
+def render_plane_scene(root, device, n_cams=PIX_VIEWS, W=PIX_W, H=PIX_H,
+                       f=PIX_F, seed=SEED):
+    """Photo-like views of ``tests/test_pixels_e2e.py``'s scene, rendered
+    by the port's rasterizer (K2): 6,300 flat gaussians textured on four
+    planes of a room corner (floor, two walls, a raised table), seen by
+    ``n_cams`` pinhole cameras on an arc of 150 degrees at radius 3.5,
+    written as ``root/images/v###.png``.  Returns the ground truth
+    (world->cam xyzw quaternions, centers), in view order."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+
+    def plane_blobs(n, origin, eu, ev, nrm, lift=0.0):
+        uv = rng.uniform(0, 1, (n, 2))
+        c = origin[None] + uv[:, :1] * eu[None] + uv[:, 1:] * ev[None]
+        c[:, 2] += lift
+        su = np.exp(rng.uniform(np.log(0.01), np.log(0.08), (n, 1)))
+        sv = np.exp(rng.uniform(np.log(0.01), np.log(0.08), (n, 1)))
+        sn = np.full((n, 1), 0.002)
+        z = np.array([0.0, 0, 1])
+        ax = np.cross(z, nrm)
+        ang = np.arctan2(np.linalg.norm(ax), z @ nrm)
+        ax = ax / (np.linalg.norm(ax) + 1e-12)
+        base = lie.rotvec_to_matrix(torch.as_tensor(ax * ang))
+        spin = lie.rotvec_to_matrix(torch.as_tensor(
+            np.outer(rng.uniform(0, np.pi, n), nrm)))
+        q = lie.matrix_to_quat(spin @ base).numpy()
+        return c, np.concatenate([su, sv, sn], 1), q
+
+    planes = [
+        plane_blobs(2500, np.array([-2.0, -2, -1]), np.array([4.0, 0, 0]),
+                    np.array([0.0, 4, 0]), np.array([0.0, 0, 1])),
+        plane_blobs(1500, np.array([-2.0, -2, -1]), np.array([4.0, 0, 0]),
+                    np.array([0.0, 0, 2.5]), np.array([0.0, 1, 0])),
+        plane_blobs(1500, np.array([-2.0, -2, -1]), np.array([0.0, 4, 0]),
+                    np.array([0.0, 0, 2.5]), np.array([1.0, 0, 0])),
+        plane_blobs(800, np.array([-0.6, -0.6, -1]), np.array([1.2, 0, 0]),
+                    np.array([0.0, 1.2, 0]), np.array([0.0, 0, 1]),
+                    lift=0.8),
+    ]
+    n_pts = sum(len(p[0]) for p in planes)
+    colors = rng.uniform(0.02, 0.98, (n_pts, 3))
+    opac = rng.uniform(0.6, 1.0, n_pts)
+    dev32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    gauss = [dev32(np.concatenate([p[i] for p in planes])) for i in (0, 2, 1)]
+    gauss += [dev32(opac), dev32(gs_sh.rgb_to_sh(colors)[:, None, :])]
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    gt_q, gt_c = [], []
+    for i, a in enumerate(np.linspace(np.deg2rad(-30), np.deg2rad(120),
+                                      n_cams)):
+        c = np.array([3.5 * np.cos(a), 3.5 * np.sin(a), 1.0])
+        Rm = look_at(c, np.array([-0.5, -0.5, -0.3]))
+        view = np.eye(4)
+        view[:3, :3], view[:3, 3] = Rm, -Rm @ c
+        with torch.no_grad():
+            out = gs_raster.rasterize(*gauss, dev32(view), dev32(K), width=W,
+                                      height=H, sh_degree=0,
+                                      tiles_per_gauss=16, tile_capacity=256)
+        img = (torch.clamp(out.rgb, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        imwrite(os.path.join(root, "images", f"v{i:03d}.png"), img)
+        gt_q.append(lie.matrix_to_quat(torch.as_tensor(Rm)).numpy())
+        gt_c.append(c)
+    return dict(q=np.array(gt_q), centers=np.array(gt_c))
+
+
+def model_errors(model_dir, gt):
+    """(registered views, points, rotation errors in degrees, ATE / extent)
+    of a sparse model written from ``render_plane_scene``'s views."""
+    _, imgs_m, pts_m = cmio.read_model(model_dir)
+    idx = np.array([int(im.name[1:4]) for im in imgs_m.values()])
+    q = np.array([np.roll(im.qvec_wxyz, -1) for im in imgs_m.values()])
+    R = lie.quat_to_matrix(torch.as_tensor(q)).numpy()
+    t = np.array([im.tvec for im in imgs_m.values()])
+    centers = -np.einsum("nji,nj->ni", R, t)
+    rot, ate = aligned_errors(q, centers, gt["q"][idx], gt["centers"][idx])
+    return len(imgs_m), len(pts_m), rot, ate
+
+
+def run_pixels(device):
+    """Pixels to poses through the port's command-line entry points, as
+    ``tests/test_pixels_e2e.py`` does with JAX's: 16 rendered views, then
+    ``cli.feat`` (SIFT and matching on the card) and ``cli.sfm`` (the mapper
+    on the card, float32), then ``sparse/0`` read back and held against the
+    render's ground truth with that test's bars."""
+    from instantsfm_tpu_torch.cli import feat as cli_feat
+    from instantsfm_tpu_torch.cli import sfm as cli_sfm
+    from instantsfm_tpu_torch.features import handler
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as work:
+        t0 = time.perf_counter()
+        k23.composite_fwd.launches = 0
+        gt = render_plane_scene(work, device)
+        render_s = time.perf_counter() - t0
+        k2_render = k23.composite_fwd.launches
+        feat_stats = []
+        generate = handler.generate_database
+
+        def keep_stats(*args, **kw):
+            feat_stats.append(generate(*args, **kw))
+            return feat_stats[-1]
+
+        handler.generate_database = keep_stats
+        try:
+            t0 = time.perf_counter()
+            rc_feat = cli_feat.main(["--data_path", work, "--max_keypoints",
+                                     "3000", "--match_ratio", "0.9"])
+            feat_s = time.perf_counter() - t0
+        finally:
+            handler.generate_database = generate
+        t0 = time.perf_counter()
+        rc_sfm = cli_sfm.main(["--data_path", work])
+        sfm_s = time.perf_counter() - t0
+        n_reg, n_pts, rot, ate = model_errors(
+            os.path.join(work, "sparse", "0"), gt)
+    st = feat_stats[0]
+    rec = dict(views=PIX_VIEWS, width=PIX_W, height=PIX_H, render_s=render_s,
+               k2_launches_render=k2_render, feat_cli_s=feat_s,
+               extract_s=st["extract_s"], match_s=st["match_s"],
+               db_write_s=st["write_s"], keypoints=st["keypoints"],
+               matches=st["matches"], verified_pairs=st["verified_pairs"],
+               sfm_cli_s=sfm_s, registered=n_reg, points=n_pts,
+               rot_err_deg_max=float(rot.max()),
+               rot_err_deg_mean=float(rot.mean()),
+               ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
+               card=card_line())
+    log("PIXELS " + json.dumps(rec))
+    checks = {
+        "cli.feat and cli.sfm exit 0": rc_feat == 0 and rc_sfm == 0,
+        f">= {PIX_VIEWS - 1}/{PIX_VIEWS} views registered":
+            n_reg >= PIX_VIEWS - 1,
+        "more than 300 points": n_pts > 300,
+        "max ATE < 2% of the extent": rec["ate_rel_max"] < 0.02,
+        "max rotation error < 0.5 degree": rec["rot_err_deg_max"] < 0.5,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pixels-to-poses path failed: {failed}")
+    return rec
+
+
+def match_bound(pairs, K, D=128):
+    """Exhaustive matching's bound, reckoned from the code: per pair a
+    [K, D] x [D, K] float32 product (2 K^2 D FLOP, outside the tensor
+    cores) at 67 TFLOP/s, and the [K, K] similarity written once and read
+    by the top-2 and both argmaxes (4 K^2 float32) at 3.35 TB/s."""
+    flops = pairs * 2 * K * K * D
+    nbytes = pairs * 4 * K * K * 4
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(match_tflop=flops / 1e12, match_tbytes=nbytes / 1e12,
+                match_bound_ops_s=t_ops, match_bound_bytes_s=t_bytes,
+                match_bound_s=max(t_ops, t_bytes),
+                match_bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def run_feat(device):
+    """Feature throughput at a real size: 200 views of the plane scene at
+    640x480, ``generate_database`` with 4,096 keypoints an image and
+    exhaustive matching (19,900 pairs) on the card; then one pass of the
+    mapper (float32) over that database, whose registered count and pose
+    errors are printed but hold no bar."""
+    from instantsfm_tpu_torch.features import handler
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_feat_") as work:
+        t0 = time.perf_counter()
+        gt = render_plane_scene(work, device, n_cams=FEAT_VIEWS, W=FEAT_W,
+                                H=FEAT_H, f=FEAT_W * 400.0 / PIX_W)
+        render_s = time.perf_counter() - t0
+        dbpath = os.path.join(work, "database.db")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = handler.generate_database(
+            os.path.join(work, "images"), dbpath, config=Config("colmap"),
+            max_keypoints=FEAT_KEYPOINTS, log=lambda *a: None, device=device)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        view_graph, cameras, images, name = read_colmap_database(dbpath)
+        n_images = images.num_images
+        debug.drain_stats()
+        k1.schur_wchain.launches = 0
+        t0 = time.perf_counter()
+        _, images, tracks, timings = solve_global_mapper(
+            view_graph, cameras, images, Config(name), dtype=torch.float32,
+            log=lambda *a: None, device=device)
+        mapper_s = time.perf_counter() - t0
+    reg = images.registered
+    rot, ate = aligned_errors(images.qvec[reg], images.centers()[reg],
+                              gt["q"][reg], gt["centers"][reg])
+    rec = dict(views=FEAT_VIEWS, width=FEAT_W, height=FEAT_H,
+               max_keypoints=FEAT_KEYPOINTS, render_s=render_s, **st,
+               extract_ms_per_image=st["extract_s"] * 1e3 / FEAT_VIEWS,
+               peak_device_gb=peak_gb,
+               **match_bound(st["pairs"], FEAT_KEYPOINTS),
+               mapper_s=mapper_s, mapper_stage_s=timings,
+               mapper_registered=int(reg.sum()),
+               mapper_tracks=int(tracks.num_tracks),
+               mapper_k1_launches=k1.schur_wchain.launches,
+               mapper_rot_err_deg_max=float(rot.max()),
+               mapper_ate_rel_max=float(ate.max()), card=card_line())
+    log("FEAT " + json.dumps(rec))
+    checks = {
+        f"{FEAT_VIEWS} images in the database": n_images == FEAT_VIEWS,
+        "19,900 pairs matched": st["pairs"] == FEAT_VIEWS * (FEAT_VIEWS - 1) // 2,
+        "keypoints found": st["keypoints"] > 100 * FEAT_VIEWS,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"feature throughput phase failed: {failed}")
     return rec
 
 
@@ -1451,7 +1802,7 @@ def kernel_entry(name, source, replaces, launches, case, **extra):
                 ["seconds"], **extra)
 
 
-def k1_entry(cases, ba_rec, gp_rec, sfm_rec):
+def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
     main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
                      and c["dtype"] == "float32")
     f32_cases = [c for c in cases if c["dtype"] == "float32"]
@@ -1465,6 +1816,11 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec):
         launches_sfm_ba=sfm_rec["k1_launches_ba"],
         max_abs_err_sfm_gp=sfm_rec["k1_max_abs_err_gp"],
         max_abs_err_sfm_ba=sfm_rec["k1_max_abs_err_ba"],
+        launches_retri=retri_rec["k1_launches_retri"],
+        launches_retri_by_pc=retri_rec["k1_launches_retri_by_pc"],
+        max_abs_err_sfm_retri=retri_rec["k1_on_retri_pc2_input"]["max_abs_err"],
+        retri_pc2_input={k: retri_rec["k1_on_retri_pc2_input"][k] for k in (
+            "PC", "rows", "points", "cams", "L", "ms", "plain_ms", "bound_ms")},
         bound_ms_unfused=main_case["bound_ms_unfused"],
         index_add_ms=main_case["index_add_ms"],
         index_add_ms_warm_l2=main_case["index_add_ms_warm_l2"],
@@ -1537,13 +1893,17 @@ def main(argv=None):
     ba_rec, gt = run_ba(device)
     debug.ENABLED = False
     gp_rec = run_gp_step(device, gt)
-    sfm_rec = run_sfm(device, profile=args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
+        sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)
+        retri_rec = run_sfm_retri(device, dbpath, sfm_gt)
+    run_pixels(device)
+    run_feat(device)
     if args.profile:
         profile_ba_step(device)
     gs_rec, tiles = run_gs(device, profile=args.profile)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
-    kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec)] + [
+    kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec)] + [
         k23_entry(which, k23_main[which], k23_hand, gs_rec)
         for which in (0, 1)]
     log(f"card: {card}")

@@ -7,8 +7,10 @@ Counterpart of ``instantsfm_tpu/cli/sfm.py``:
 
 SCENE holds ``database.db`` (and optionally ``images/`` for point colors
 and ``depth/``); the model is written to ``SCENE/sparse/0``.  The solve
-runs in float64 unless ``--f32``.  ``--enable_gui`` and ``--record_recon``
-raise ``NotImplementedError`` naming their ROADMAP item.
+runs in float32 on the card, and in float64 on the CPU unless ``--f32``
+(as the JAX package's CLI: float64 only on its CPU backend).
+``--enable_gui`` and ``--record_recon`` raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def main(argv=None):
     parser.add_argument("--record_path", default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--f32", action="store_true",
-                        help="solve in float32 (default float64)")
+                        help="solve in float32 (the default on the card; "
+                             "the CPU's default is float64)")
     args = parser.parse_args(argv)
     if args.enable_gui or args.record_recon:
         raise NotImplementedError(
@@ -48,7 +51,8 @@ def main(argv=None):
     from instantsfm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    dtype = torch.float32 if args.f32 else torch.float64
+    use_f64 = device.type == "cpu" and not args.f32
+    dtype = torch.float64 if use_f64 else torch.float32
     path_info = read_data(args.data_path)
     if not path_info.database_exists:
         print(f"No database.db found under {args.data_path}", file=sys.stderr)

@@ -5,7 +5,8 @@ The JAX package reads images through ``imageio``; the port reads and writes
 PNG without it (grey, grey+alpha, RGB and RGBA, 8 bits, not interlaced,
 all five row filters), so a scene loads on a machine that has neither
 ``imageio`` nor PIL.  Any other format goes to ``imageio`` and raises,
-naming the format, where that is missing.
+naming the format, where that is missing.  ``resize`` shrinks an image as
+PIL's bilinear resize does, in torch.
 """
 
 from __future__ import annotations
@@ -166,3 +167,19 @@ def imwrite(path, img, filter_type: int = 1) -> None:
         _write_png(path, img, filter_type)
     else:
         _imageio(path, "write").imwrite(path, np.asarray(img))
+
+
+def resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Bilinear resize of a uint8 [H, W] or [H, W, C] image with
+    antialiasing (the filter widened by the scale when shrinking, as PIL's
+    ``Image.resize(..., BILINEAR)``), rounded back to uint8; within one
+    grey level of PIL."""
+    import torch
+    import torch.nn.functional as F
+
+    t = torch.as_tensor(np.asarray(img, np.uint8))
+    chw = (t[None] if t.dim() == 2 else t.permute(2, 0, 1)).to(torch.float32)
+    out = F.interpolate(chw[None], size=(height, width), mode="bilinear",
+                        antialias=True, align_corners=False)[0]
+    out = torch.round(out).clamp(0, 255).to(torch.uint8)
+    return (out[0] if t.dim() == 2 else out.permute(1, 2, 0)).numpy()

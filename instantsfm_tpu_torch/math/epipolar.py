@@ -16,6 +16,12 @@ import math
 import torch
 
 _EPS = 1e-12
+# cuSOLVER's batched symmetric eigensolver refuses 32,768 or more matrices
+# in one call (CUSOLVER_STATUS_INVALID_VALUE; torch 2.11, CUDA 12.8, H100),
+# which view-graph calibration reaches from 16,384 image pairs; in float32
+# it can also fail to converge on the double eigenvalue of EᵀE (an
+# essential matrix), so svd3x3 solves its 3x3 eigenproblems in float64
+EIGH_BATCH = 16384
 
 
 def _norm(x, dim=-1, keepdim=False):
@@ -30,7 +36,17 @@ def svd3x3(M):
     """Batched SVD of (..., 3, 3) via eigh of MᵀM (no sign guarantees beyond
     U S Vᵀ = M with S >= 0 descending).  Returns (U, s, V)."""
     MtM = M.transpose(-1, -2) @ M
-    s2, V = torch.linalg.eigh(MtM)           # ascending
+    # torch.linalg.eigh raises on a matrix that is not finite, where JAX's
+    # returns NaN: such a matrix is solved as zero and its factors are NaN
+    bad = ~torch.isfinite(MtM).all(dim=-1).all(dim=-1)
+    flat = torch.where(bad[..., None, None], 0.0, MtM).reshape(-1, 3, 3)
+    parts = [torch.linalg.eigh(c) for c in
+             flat.to(torch.float64).split(EIGH_BATCH)]
+    s2 = torch.cat([p[0] for p in parts]).reshape(MtM.shape[:-1])
+    V = torch.cat([p[1] for p in parts]).reshape(MtM.shape)   # ascending
+    s2, V = s2.to(M.dtype), V.to(M.dtype)
+    s2 = torch.where(bad[..., None], torch.nan, s2)
+    V = torch.where(bad[..., None, None], torch.nan, V)
     s2 = s2.flip(-1)
     V = V.flip(-1)
     s = torch.sqrt(s2.clamp_min(0.0))

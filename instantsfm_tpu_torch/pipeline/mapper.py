@@ -6,10 +6,10 @@ preprocess -> view-graph calibration -> relative pose + inlier filters + LCC
 -> 2x (rotation averaging + rotation filter + LCC) -> track establishment ->
 global positioning + angle filter + normalize ->
 3x (BA + reprojection filter with eps*max(1, 3-iter)) ->
-final filters + normalize.
+final filters + normalize -> [retriangulation + BA + filters] -> [pruning].
 
-Retriangulation and pruning (``skip_retriangulation`` / ``skip_pruning``
-False) wait for ROADMAP queue 1 item 5's remainder and raise.
+Retriangulation and pruning are off by default, as in JAX
+(``skip_retriangulation`` / ``skip_pruning``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import torch
 
 from instantsfm_tpu_torch.config import Config
 from instantsfm_tpu_torch.pipeline import (ba, filters, positioning,
-                                           preprocess, relpose,
+                                           preprocess, pruning, relpose,
+                                           retriangulation,
                                            rotation_averaging, track_filters,
                                            tracks as tracks_mod, vgc)
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks, ViewGraph
@@ -63,13 +64,7 @@ def solve_global_mapper(view_graph: ViewGraph, cameras: Cameras,
     dev = resolve_device(device)
     opts = config.OPTIONS
     inl_opts = config.INLIER_THRESHOLD_OPTIONS
-    for key, item in (("skip_retriangulation", "retriangulation"),
-                      ("skip_pruning", "pruning")):
-        if not opts[key]:
-            raise NotImplementedError(
-                f"{key}=False: {item} is not ported yet (ROADMAP queue 1, "
-                "item 5)")
-    tracks = Tracks.empty()
+    tracks = tracks_orig = Tracks.empty()
     timings = {}
     stage = lambda name, key: _stage(name, key, timings, log, dev)
 
@@ -181,6 +176,27 @@ def solve_global_mapper(view_graph: ViewGraph, cameras: Cameras,
             track_filters.normalize_reconstruction(
                 images, tracks, depths=depths_available or None)
         _hook("bundle_adjustment")
+
+    if not opts["skip_retriangulation"]:
+        with stage("retriangulation", "retriangulation"):
+            tracks = retriangulation.retriangulate_tracks(
+                cameras, images, tracks, tracks_orig,
+                config.TRIANGULATOR_OPTIONS, config.BUNDLE_ADJUSTER_OPTIONS,
+                dtype=dtype, log=log, device=dev)
+            ba.bundle_adjustment(cameras, images, tracks,
+                                 config.BUNDLE_ADJUSTER_OPTIONS, dtype=dtype,
+                                 device=dev)
+            relpose.undistort_images(cameras, images, device=dev)
+            tracks = track_filters.filter_tracks_by_reprojection_normalized(
+                cameras, images, tracks, inl_opts["max_reprojection_error"])
+            tracks = track_filters.filter_tracks_triangulation_angle(
+                cameras, images, tracks, inl_opts["min_triangulation_angle"])
+        _hook("retriangulation")
+
+    if not opts["skip_pruning"]:
+        with stage("pruning", "pruning"):
+            pruning.prune_weakly_connected_images(images, tracks, log=log)
+        _hook("pruning")
 
     for name, dt in timings.items():
         log(f"{name} took: {dt:.2f}s")

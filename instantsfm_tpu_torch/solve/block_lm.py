@@ -36,7 +36,7 @@ from instantsfm_tpu_torch.solve.blocked import gather_pt, seg_by_pt
 from instantsfm_tpu_torch.solve.pcg import pcg
 from instantsfm_tpu_torch.solve.schur_wchain import schur_wchain
 from instantsfm_tpu_torch.utils import debug as _dbg
-from instantsfm_tpu_torch.utils.device import check_on_device
+from instantsfm_tpu_torch.utils.device import check_on_device, full_f32
 
 
 class BlockProblem(NamedTuple):
@@ -330,15 +330,19 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                       cols[:, None, :].expand(O, 3, PC)), P, accumulate=True)
         # full-precision float32 product on the card: TF32 would keep ~3
         # significant digits of the Schur complement
-        torch.backends.cuda.matmul.allow_tf32 = False
-        S = -(Y.T @ Y)
+        with full_f32():
+            S = -(Y.T @ Y)
         ii = torch.arange(C, device=dev)[:, None, None] * PC
         blk_r = (ii + torch.arange(PC, device=dev)[None, :, None]).expand(C, PC, PC)
         blk_c = (ii + torch.arange(PC, device=dev)[None, None, :]).expand(C, PC, PC)
         S.index_put_((blk_r, blk_c), U_d, accumulate=True)
         S = S + eps * torch.eye(n, dtype=S.dtype, device=dev)
-        chol = torch.linalg.cholesky(S)
+        # as JAX's cho_factor: where rounding leaves S short of positive
+        # definite (float32) the step is NaN, which lm_step rejects and
+        # damps further, in place of an exception
+        chol, info = torch.linalg.cholesky_ex(S)
         d_cam = torch.cholesky_solve(rhs.reshape(n, 1), chol).reshape(C, PC)
+        d_cam = torch.where(info == 0, d_cam, torch.nan)
         iters = 0
     else:
         # block-Jacobi preconditioner on the Schur diagonal; its camera

@@ -17,7 +17,12 @@ of L = 2**k rows.
 ``schur_wchain_rows_reference``, then ``index_add_`` by camera), CUDA
 tensors to the hand-written kernel in ``csrc/schur_wchain.cu`` (built with
 nvcc on first use, launched on the current stream), which never writes u.
-There is no fallback between the two.
+The kernel takes camera blocks of PC <= 8 (``MAX_PC``); wider blocks on the
+card (PC 9-16: RADIAL, FOV, OPENCV, FULL_OPENCV and the fisheyes in BA) go
+to the plain version, as the JAX package calls its Pallas kernel only at
+PC <= 8 and its XLA chain otherwise (``instantsfm_tpu/solve/block_lm.py``
+:881-890).  That is a width rule, not a fallback: a kernel that fails to
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -177,15 +182,21 @@ def schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets):
     """y [C, PC] = SUM by camera of u_o = W_o V_inv[pt_o] SUM_track(o)(W_kᵀ
     x[cam_k]).
 
-    CPU tensors: ``schur_wchain_reference``.  CUDA tensors: the CUDA kernel
-    (counted in ``schur_wchain.launches``), which requires ``buckets`` and
-    finds each row's point slot from them (``pt_idx`` is not read)."""
+    CPU tensors: ``schur_wchain_reference``.  CUDA tensors with PC <= 8:
+    the CUDA kernel (counted in ``schur_wchain.launches``), which requires
+    ``buckets`` and finds each row's point slot from them (``pt_idx`` is
+    not read).  CUDA tensors with PC > 8: ``schur_wchain_reference`` on the
+    card, counted in ``schur_wchain.plain_calls``."""
     if W.device.type == "cpu":
         return schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
     if W.device.type != "cuda":
         raise ValueError(f"schur_wchain: unsupported device {W.device}")
+    if W.shape[1] > MAX_PC:
+        schur_wchain.plain_calls += 1
+        return schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
     return _launch(W.contiguous(), V_inv.contiguous(), x.contiguous(),
                    cam_idx.contiguous(), buckets)
 
 
-schur_wchain.launches = 0
+schur_wchain.launches = 0      # kernel launches
+schur_wchain.plain_calls = 0   # PC > 8 on the card: the plain version

@@ -7,6 +7,8 @@ on their own: without a card they raise, and the caller asks for the CPU with
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,3 +29,20 @@ def check_on_device(device, tensor: torch.Tensor) -> torch.device:
         raise ValueError(f"inputs live on {tensor.device} but device={dev}; "
                          "move them with convert.from_numpy or .to()")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full float32 in cuDNN convolutions and cuBLAS products inside the
+    block, whatever the caller set: both may otherwise run in TF32 (about
+    three decimal digits; cuDNN does by default).  The flags are restored
+    on exit."""
+    conv = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

@@ -218,3 +218,32 @@ def test_lm_step_rejects_bad_steps():
     state = tbl.lm_step(problem, kernel, cfg, _tstate(params, 1e-12), obs,
                         device="cpu")
     assert float(state.cost) <= float(c0) * (1 + 1e-12)
+
+
+def test_dense_solve_of_indefinite_system_is_nan_like_jax():
+    """A damped reduced camera system that is not positive definite (forced
+    here by a damping of -2, which negates the camera blocks): JAX's
+    Cholesky gives NaN, so its step is NaN and ``lm_step`` rejects it and
+    damps further; the port's dense solve gives NaN as well, where
+    ``torch.linalg.cholesky`` would raise.  On the card a float32 BA of a
+    small scene meets such a system."""
+    problem, tproblem, params, obs, tparams, tobs, buckets = _setup("ba")
+    T = params.pts.shape[0]
+    kernel = (jrobust.huber(1.0), trobust.huber(1.0))
+    jsys = jbl.build_system(problem, params, obs, kernel[0], T,
+                            buckets=buckets)
+    tsys = tbl.build_system(tproblem, tparams, tobs, kernel[1], T,
+                            buckets=buckets)
+    for lam, finite in ((1e-4, True), (-2.0, False)):
+        want = jbl.solve_damped(problem, jsys, obs, jnp.asarray(lam),
+                                dense_schur=True, buckets=buckets)[0]
+        got = tbl.solve_damped(tproblem, tsys, tobs, torch.tensor(lam, dtype=F64),
+                               dense_schur=True, buckets=buckets)[0]
+        assert np.isfinite(np.asarray(want)).all() == finite
+        assert torch.isfinite(got).all().item() == finite
+        if finite:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-9)
+        else:
+            assert np.isnan(np.asarray(want)).all()
+            assert torch.isnan(got).all()

@@ -90,11 +90,12 @@ def test_schur_wchain_kernel_layouts(layout, dtype):
     all padded rows on camera 0); PC = 1 and 8 at the most cameras the
     shared table takes and at one more, with tracks of 2 rows, whose work
     items stage the most V_inv slots (float64 at PC = 8 then needs
-    225,536 B of the card's 232,448 B a block)."""
+    225,536 B of the card's 232,448 B a block); PC = 2 is the width of
+    retriangulation's frozen-pose BA on SIMPLE_RADIAL cameras."""
     _need_card()
     dt = getattr(torch, dtype)
     if layout == "table_edge":
-        for PC in (1, 8):
+        for PC in (1, 2, 8):
             C = next(c for c in range(1, 10_000)
                      if not k1.shared_table(c, PC, dt))
             for cams in (C - 1, C):
@@ -159,6 +160,45 @@ def test_bundle_adjustment_rounds_card_matches_cpu():
                        k1.schur_wchain.launches - launches)
     (img_c, it_c, _), (img_g, it_g, n_launch) = out["cpu"], out["cuda"]
     assert n_launch > 0
+    assert all(abs(a - b) <= 1 for a, b in zip(it_c, it_g)), (it_c, it_g)
+    np.testing.assert_allclose(img_g.qvec, img_c.qvec, atol=1e-6)
+    np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bundle_adjustment_past_pc8_card_matches_cpu():
+    """BA on OPENCV cameras (camera block PC = 12) past the dense Schur
+    limit (9,000 point slots > 8,192, so the PCG path) in float64 on the
+    card against the CPU: K1 takes PC <= 8, so the PCG matvec runs its
+    plain version on the card, counted in ``schur_wchain.plain_calls``, and
+    K1's launch counter does not move.  Poses agree to 1e-6, the LM
+    iteration count of each round within one."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch import config
+    from instantsfm_tpu_torch.pipeline import ba
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.utils import debug
+
+    opts = dict(config.BUNDLE_ADJUSTER_OPTIONS, max_num_iterations=10)
+    out = {}
+    for device in ("cpu", "cuda"):
+        cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                           num_pts=9000)
+        # the scene's SIMPLE_RADIAL projection as OPENCV parameters
+        cameras.model_ids[:] = cm.OPENCV
+        cameras.params[0, :8] = [500.0, 500.0, 320.0, 240.0, 0.01, 0, 0, 0]
+        debug.drain_stats()
+        launches = k1.schur_wchain.launches
+        plain = k1.schur_wchain.plain_calls
+        ba.bundle_adjustment_rounds(cameras, images, tracks, opts, 1e-2,
+                                    device=device)
+        out[device] = (images, debug.drain_stats()["ba_lm_iters"],
+                       k1.schur_wchain.launches - launches,
+                       k1.schur_wchain.plain_calls - plain)
+    (img_c, it_c, _, plain_c), (img_g, it_g, n_launch, n_plain) = (
+        out["cpu"], out["cuda"])
+    assert plain_c == 0 and n_plain > 0 and n_launch == 0
     assert all(abs(a - b) <= 1 for a, b in zip(it_c, it_g)), (it_c, it_g)
     np.testing.assert_allclose(img_g.qvec, img_c.qvec, atol=1e-6)
     np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=1e-6)
@@ -321,3 +361,115 @@ def test_mapper_card_matches_cpu(tmp_path):
     extent = np.linalg.norm(ic.centers().max(0) - ic.centers().min(0))
     assert np.max(np.abs(ig.centers() - ic.centers())) < 1e-6 * extent
     assert np.max(np.abs(tg.xyz - tc.xyz)) < 1e-6 * extent
+
+
+@pytest.mark.cuda
+def test_sift_and_matching_card_match_cpu(tmp_path):
+    """SIFT and matching on the card against the CPU, on three views of
+    ``tests/test_pixels_e2e.py``'s scene at 480x360 (rendered on the card),
+    with TF32 turned on for cuDNN and cuBLAS around the card's calls: the
+    blur and the similarity product must keep full float32 all the same.
+    Extraction: the valid keypoint sets agree to all but 1% (float32 sums
+    in another order can flip an extremum at a threshold); the common
+    keypoints' xy agree exactly, their descriptors to 1e-5 where their
+    orientations agree (the card's histograms sum with atomics), and the
+    orientations differ for at most 1% of them.  Matching, on the same
+    descriptors: each pair's matches agree to all but 1%.  The views are
+    the first three of the 16 (10 degrees apart)."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.features import matching, sift
+    from instantsfm_tpu_torch.features.handler import load_gray
+
+    chip_smoke.render_plane_scene(str(tmp_path), "cuda")
+    cfg = sift.SiftConfig(max_keypoints=3000)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    descs, valids = [], []
+    for i in range(3):
+        img, _, _ = load_gray(str(tmp_path / "images" / f"v{i:03d}.png"), 1600)
+        cpu = sift.extract(img, cfg, device="cpu")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            card = sift.extract(img, cfg, device="cuda")
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        key = lambda out: {(float(x), float(y), float(s)): k for k, ((x, y), s, v)
+                           in enumerate(zip(out[0], out[1], out[4])) if v}
+        kc, kg = key(cpu), key(card)
+        assert len(kc) > 500
+        assert len(set(kc) ^ set(kg)) <= 0.01 * len(kc)
+        common = sorted(set(kc) & set(kg))
+        ic = np.array([kc[c] for c in common])
+        ig = np.array([kg[c] for c in common])
+        np.testing.assert_array_equal(card[0][ig], cpu[0][ic])
+        same_ori = np.abs(card[2][ig] - cpu[2][ic]) <= 1e-5
+        assert same_ori.mean() >= 0.99
+        np.testing.assert_allclose(card[3][ig][same_ori], cpu[3][ic][same_ori],
+                                   atol=1e-5)
+        descs.append(cpu[3])
+        valids.append(cpu[4])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        torch.backends.cuda.matmul.allow_tf32 = dev == "cuda"
+        try:
+            out[dev] = matching.match_all_pairs(descs, valids, ratio=0.9,
+                                                device=dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    for pair, m in out["cpu"].items():
+        got = {tuple(r) for r in out["cuda"][pair].tolist()}
+        want = {tuple(r) for r in m.tolist()}
+        assert len(want) > 50
+        assert len(got ^ want) <= 0.01 * len(want), pair
+
+
+@pytest.mark.cuda
+def test_svd3x3_large_batch_card_matches_cpu():
+    """``math/epipolar.py::svd3x3`` on 40,000 matrices on the card, the
+    batch of view-graph calibration at 20,000 image pairs: cuSOLVER's
+    batched eigensolver refuses such a batch in one call, so the
+    eigensolves run ``EIGH_BATCH`` matrices at a time.  In float32 the two
+    largest singular values agree with the CPU's to 1e-5 of the largest;
+    the smallest comes from an eigenvalue of MᵀM, which float32 sums in
+    another order know to eps * s_max², so to 1e-3 of the largest."""
+    _need_card()
+    from instantsfm_tpu_torch.math import epipolar
+
+    M = torch.randn((2, 20_000, 3, 3), generator=torch.Generator()
+                    .manual_seed(0))
+    _, s_cpu, _ = epipolar.svd3x3(M)
+    U, s, V = epipolar.svd3x3(M.cuda())
+    torch.cuda.synchronize()
+    rel = (s.cpu() - s_cpu).abs() / s_cpu[..., :1]
+    assert rel[..., :2].max().item() < 1e-5
+    assert rel[..., 2].max().item() < 1e-3
+    rec = U @ torch.diag_embed(s) @ V.transpose(-1, -2)
+    assert (rec.cpu() - M).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_svd3x3_double_singular_value_on_card():
+    """EᵀE of an essential matrix has a double eigenvalue; on this one (an
+    essential matrix of relative pose, scaled to unit norm, its bits kept
+    as found) cuSOLVER's batched float32 eigensolver failed to converge,
+    so ``svd3x3`` solves in float64: the card's factors agree with the
+    CPU's, singular values to 1e-6."""
+    _need_card()
+    from instantsfm_tpu_torch.math import epipolar
+
+    MtM = np.frombuffer(bytes.fromhex(
+        "7fa4133ea16d2a3e55511d3ea16d2a3e1324d83ec72b93bd55511d3ec72b93bd"
+        "ab09de3e"), np.float32).reshape(1, 3, 3)
+    w, v = np.linalg.eigh(MtM[0].astype(np.float64))
+    # a matrix M with that MᵀM: M = diag(sqrt(w)) vᵀ
+    M = torch.tensor(np.sqrt(np.clip(w, 0, None))[:, None] * v.T,
+                     dtype=torch.float32)[None].repeat(64, 1, 1)
+    _, s_cpu, _ = epipolar.svd3x3(M)
+    _, s, _ = epipolar.svd3x3(M.cuda())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(s.cpu().numpy(), s_cpu.numpy(), atol=1e-6)
+    W, _ = torch.linalg.eigh(torch.tensor(MtM, device="cuda").double())
+    np.testing.assert_allclose(W.cpu().numpy()[0], w, atol=1e-7)

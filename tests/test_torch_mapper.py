@@ -159,11 +159,6 @@ def test_cli_sfm_on_cpu(runs, tmp_path):
 
 def test_entry_points_refuse_unported_options(runs):
     vg, cams, imgs, name = read_colmap_database(runs["db"])
-    for key in ("skip_retriangulation", "skip_pruning"):
-        cfg = Config(name)
-        cfg.OPTIONS[key] = False
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve_global_mapper(vg, cams, imgs, cfg, log=_quiet, device="cpu")
     from instantsfm_tpu_torch.cli import sfm as cli
     if not torch.cuda.is_available():
         cfg = Config(name)
@@ -186,3 +181,30 @@ def test_k1_counts_only_card_launches(runs):
     """On the CPU the mapper's GP and BA run K1's plain version: the launch
     counter, which counts kernel launches only, does not move."""
     assert runs["k1_launches"] == 0
+
+
+class _Solved(Exception):
+    pass
+
+
+@pytest.mark.parametrize("device,f32,want", [
+    ("cpu", False, torch.float64), ("cpu", True, torch.float32),
+    ("cuda", False, torch.float32), ("cuda", True, torch.float32)])
+def test_cli_sfm_precision(runs, monkeypatch, device, f32, want):
+    """``cli.sfm`` solves in float64 only on the CPU without ``--f32``, as
+    the JAX package's CLI does on its CPU backend; on the card it solves in
+    float32.  The mapper is replaced by a stub that records its dtype, and
+    the device check by one that accepts ``cuda``, so no card is needed."""
+    from instantsfm_tpu_torch.cli import sfm as cli
+
+    def solve(*args, dtype, device, **kw):
+        raise _Solved(dtype, device)
+
+    monkeypatch.setattr("instantsfm_tpu_torch.pipeline.mapper."
+                        "solve_global_mapper", solve)
+    monkeypatch.setattr("instantsfm_tpu_torch.utils.device.resolve_device",
+                        torch.device)
+    argv = ["--data_path", str(runs["root"]), "--device", device]
+    with pytest.raises(_Solved) as got:
+        cli.main(argv + ["--f32"] * f32)
+    assert got.value.args == (want, torch.device(device))

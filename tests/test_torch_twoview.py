@@ -78,21 +78,55 @@ def _up_to_sign(a, b):
     return np.minimum(np.abs(a - b).max(-1), np.abs(a + b).max(-1))
 
 
+def _svd3x3_holds(M):
+    Uj, sj, Vj = (np.asarray(a) for a in jep.svd3x3(_j(M)))
+    Ut, st, Vt = (a.numpy() for a in tep.svd3x3(_t(M)))
+    assert st.shape == sj.shape and Ut.shape == Vt.shape == M.shape
+    assert _rel(st[..., :2], sj[..., :2]) < 1e-10
+    # the smallest singular value comes from the eigenvalue of MᵀM, known
+    # to eps * s_max², so to sqrt(eps) * s_max (rank-2 rows: s3 = 0)
+    assert np.max(np.abs(st[..., 2] - sj[..., 2]) / sj[..., 0]) < 1e-7
+    # each factorization reproduces M (signs of U/V columns are free) as
+    # well as JAX's does: U = M V / s carries the same sqrt(eps) error
+    for U, s, V in ((Ut, st, Vt), (Uj, sj, Vj)):
+        rec = np.einsum("...ij,...j,...kj->...ik", U, s, V)
+        assert np.max(np.abs(rec - M)) < 1e-7
+
+
 def test_svd3x3_matches_jax():
     rng = np.random.default_rng(0)
     M = rng.standard_normal((64, 3, 3))
     M[:8, :, 2] = M[:8, :, 0] + M[:8, :, 1]           # rank 2
+    _svd3x3_holds(M)
+
+
+def test_svd3x3_of_non_finite_matrix_is_nan_like_jax():
+    """A matrix with NaN or inf in the batch: JAX's eigh gives it NaN
+    factors, and so does the port, where ``torch.linalg.eigh`` would raise
+    for the whole batch; the other matrices are factored as before."""
+    rng = np.random.default_rng(2)
+    M = rng.standard_normal((16, 3, 3))
+    M[3, 1, 1] = np.nan
+    M[7, 0, 2] = np.inf
     Uj, sj, Vj = (np.asarray(a) for a in jep.svd3x3(_j(M)))
     Ut, st, Vt = (a.numpy() for a in tep.svd3x3(_t(M)))
-    assert _rel(st[:, :2], sj[:, :2]) < 1e-10
-    # the smallest singular value comes from the eigenvalue of MᵀM, known
-    # to eps * s_max², so to sqrt(eps) * s_max (rank-2 rows: s3 = 0)
-    assert np.max(np.abs(st[:, 2] - sj[:, 2]) / sj[:, 0]) < 1e-7
-    # each factorization reproduces M (signs of U/V columns are free) as
-    # well as JAX's does: U = M V / s carries the same sqrt(eps) error
-    for U, s, V in ((Ut, st, Vt), (Uj, sj, Vj)):
-        rec = np.einsum("bij,bj,bkj->bik", U, s, V)
-        assert np.max(np.abs(rec - M)) < 1e-7
+    for j, t in ((Uj, Ut), (sj, st), (Vj, Vt)):
+        np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
+    assert np.isnan(st[[3, 7]]).all()
+    ok = np.ones(16, bool)
+    ok[[3, 7]] = False
+    _svd3x3_holds(M[ok])
+    np.testing.assert_allclose(st[ok], tep.svd3x3(_t(M[ok]))[1].numpy())
+
+
+def test_svd3x3_splits_large_batches():
+    """Past ``EIGH_BATCH`` matrices (cuSOLVER refuses 32,768 in one batched
+    call) the eigensolves run in chunks: the same factorization, over two
+    leading dimensions."""
+    rng = np.random.default_rng(1)
+    M = rng.standard_normal((2, tep.EIGH_BATCH // 2 + 37, 3, 3))
+    M[:, :8, :, 2] = M[:, :8, :, 0] + M[:, :8, :, 1]
+    _svd3x3_holds(M)
 
 
 @pytest.mark.parametrize("essential", [True, False])
