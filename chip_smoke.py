@@ -45,21 +45,34 @@ Phases (any failure exits non-zero):
      written as PNG, then ``cli.feat`` (SIFT and matching on the card) and
      ``cli.sfm`` on the card; ``sparse/0`` must register 15 of 16 views
      with more than 300 points, ATE < 2% of the extent and rotation
-     errors < 0.5 degree (``PIXELS`` line: extraction, matching and mapper
-     seconds);
+     errors < 0.5 degree; then that test's 3DGS tail, a ``Runner`` of 50
+     steps on the reconstruction (SH degree 1, pool 2x the points), whose
+     loss must fall, with PSNR > 12 at step 50 and K2/K3 launched once a
+     training step (``PIXELS`` line: extraction, matching, mapper and 3DGS
+     seconds, K2/K3 launches);
   8. feature throughput: 200 views of that scene at 640x480,
      ``generate_database`` with 4,096 keypoints an image and exhaustive
      matching, 19,900 pairs (``FEAT`` line: extraction and matching
      seconds, peak device memory, matching's bound), then one mapper pass
      over that database (registered views and pose errors, no bar);
-  9. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
+  9. learned front-ends (``LEARNED`` line): seeded random weights (SuperPoint,
+     DISK and LightGlue at their published widths, DeDoDe at its
+     ``random_weights`` widths) written as npz and found by the handler's
+     environment variables; ``superpoint+lightglue`` on 40 views at 640x480
+     (2,048 keypoints, 780 pairs), ``disk+lightglue``, ``superpoint`` and
+     ``dedode`` on 16; each database read back with the counts written;
+     each extractor and LightGlue held against the port's CPU run; the
+     JAX tests' LightGlue bars at M = 2,048 (identity >= 95%, permutation
+     >= 90%); extraction and matching seconds, LightGlue's FLOP and bound,
+     peak device memory;
+  10. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
      (photos rendered by the port's rasterizer with SH degree 3, written as
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3.  K2/K3 are then held against their plain versions on one
      view's real tiles;
-  10. prints the kernels line, the card line and, last, the ok line.
+  11. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,8 +90,10 @@ import time
 import numpy as np
 import torch
 
-from instantsfm_tpu_torch import config
+from instantsfm_tpu_torch import config, convert
 from instantsfm_tpu_torch.config import Config
+from instantsfm_tpu_torch.features import (dedode, disk, handler, lightglue,
+                                           superpoint)
 from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.gs import rasterize as gs_raster
 from instantsfm_tpu_torch.gs import sh as gs_sh
@@ -99,6 +115,7 @@ from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import bucketize, bucketize_problem
 from instantsfm_tpu_torch.solve.problems import make_ba_problem, make_gp_problem
 from instantsfm_tpu_torch.utils import build, debug
+from instantsfm_tpu_torch.utils.device import full_f32
 
 OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -1427,15 +1444,54 @@ def model_errors(model_dir, gt):
     return len(imgs_m), len(pts_m), rot, ate
 
 
+PIX_GS_STEPS = 50                                    # test_pixels_e2e.py
+
+
+def pixels_gs_tail(work, device, steps=PIX_GS_STEPS):
+    """``tests/test_pixels_e2e.py``'s 3DGS tail: a ``Runner`` of ``steps``
+    steps (50 there; SH degree 1 from step 20, pool 2x the SfM points, 256
+    gaussians a tile) on the images and the sparse model in ``work``, then
+    evaluated (the test's eval at its last step, run after the loop so
+    that K2's and K3's counts cover the training steps alone)."""
+    cfg = GSConfig(data_dir=work, result_dir=os.path.join(work, "gs_out"),
+                   max_steps=steps, eval_steps=(), save_steps=(),
+                   sh_degree=1, sh_degree_interval=20, capacity_mult=2.0,
+                   tile_capacity=256)
+    t0 = time.perf_counter()
+    runner = Runner(cfg, log=lambda *a, **k: None, device=device)
+    setup_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+    t0 = time.perf_counter()
+    losses = runner.train()
+    sync()
+    train_s = time.perf_counter() - t0
+    k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+    stats = runner.eval(steps)
+    return dict(gs_setup_s=setup_s, gs_train_s=train_s, gs_steps=steps,
+                gs_train_views=len(runner.trainset),
+                gs_val_views=len(runner.valset),
+                gs_pool=int(runner.splats.alive.shape[0]),
+                gs_median_step_ms=float(np.median(runner.step_s[1:]) * 1e3),
+                gs_loss_first5=float(np.mean(losses[:5])),
+                gs_loss_last10=float(np.mean(losses[-10:])),
+                gs_losses_finite=bool(np.all(np.isfinite(losses))),
+                gs_psnr=stats["psnr"], gs_ssim=stats["ssim"],
+                gs_k2_launches=k2n, gs_k3_launches=k3n,
+                gs_k23_per_step=steps * cfg.batch_size)
+
+
 def run_pixels(device):
-    """Pixels to poses through the port's command-line entry points, as
+    """Pixels to poses to 3DGS through the port's entry points, as
     ``tests/test_pixels_e2e.py`` does with JAX's: 16 rendered views, then
     ``cli.feat`` (SIFT and matching on the card) and ``cli.sfm`` (the mapper
     on the card, float32), then ``sparse/0`` read back and held against the
-    render's ground truth with that test's bars."""
+    render's ground truth with that test's bars, then that test's 3DGS tail
+    (``pixels_gs_tail``) on the reconstruction: the loss falls, PSNR > 12
+    at step 50, and every training step went through K2 and K3."""
     from instantsfm_tpu_torch.cli import feat as cli_feat
     from instantsfm_tpu_torch.cli import sfm as cli_sfm
-    from instantsfm_tpu_torch.features import handler
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as work:
         t0 = time.perf_counter()
@@ -1463,6 +1519,7 @@ def run_pixels(device):
         sfm_s = time.perf_counter() - t0
         n_reg, n_pts, rot, ate = model_errors(
             os.path.join(work, "sparse", "0"), gt)
+        gs = pixels_gs_tail(work, device)
     st = feat_stats[0]
     rec = dict(views=PIX_VIEWS, width=PIX_W, height=PIX_H, render_s=render_s,
                k2_launches_render=k2_render, feat_cli_s=feat_s,
@@ -1473,7 +1530,7 @@ def run_pixels(device):
                rot_err_deg_max=float(rot.max()),
                rot_err_deg_mean=float(rot.mean()),
                ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
-               card=card_line())
+               **gs, card=card_line())
     log("PIXELS " + json.dumps(rec))
     checks = {
         "cli.feat and cli.sfm exit 0": rc_feat == 0 and rc_sfm == 0,
@@ -1482,6 +1539,13 @@ def run_pixels(device):
         "more than 300 points": n_pts > 300,
         "max ATE < 2% of the extent": rec["ate_rel_max"] < 0.02,
         "max rotation error < 0.5 degree": rec["rot_err_deg_max"] < 0.5,
+        "3DGS losses finite": gs["gs_losses_finite"],
+        "3DGS loss: mean of the last 10 below the first 5":
+            gs["gs_loss_last10"] < gs["gs_loss_first5"],
+        "3DGS PSNR > 12 at step 50": gs["gs_psnr"] > 12,
+        "K2 and K3 launched once per view per training step":
+            gs["gs_k2_launches"] == gs["gs_k3_launches"]
+            == gs["gs_k23_per_step"],
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1510,8 +1574,6 @@ def run_feat(device):
     exhaustive matching (19,900 pairs) on the card; then one pass of the
     mapper (float32) over that database, whose registered count and pose
     errors are printed but hold no bar."""
-    from instantsfm_tpu_torch.features import handler
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_feat_") as work:
         t0 = time.perf_counter()
         gt = render_plane_scene(work, device, n_cams=FEAT_VIEWS, W=FEAT_W,
@@ -1556,6 +1618,294 @@ def run_feat(device):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"feature throughput phase failed: {failed}")
+    return rec
+
+
+# ------------------------------------------------------------ learned features
+
+LEARN_VIEWS, LEARN_W, LEARN_H, LEARN_KEYPOINTS = 40, 640, 480, 2048
+LEARN_OTHER_VIEWS = 16
+LG_SCORE_TOL = 1e-4             # card against CPU, float32
+KP_SCORE_RTOL = 1e-4            # of the largest |score|, card against CPU:
+                                # DeDoDe's softmax over the image turns
+                                # its logits' ~2e-6 into ~2e-5
+EXTRACTORS = {   # module, config, weights -> module
+    "superpoint": (superpoint, superpoint.SuperPointConfig,
+                   convert.superpoint_from_numpy),
+    "disk": (disk, disk.DiskConfig, convert.disk_from_numpy),
+    "dedode": (dedode, dedode.DeDoDeConfig, convert.dedode_from_numpy)}
+WEIGHT_ENV = {"superpoint": "INSTANTSFM_SUPERPOINT_WEIGHTS",
+              "disk": "INSTANTSFM_DISK_WEIGHTS",
+              "dedode": "INSTANTSFM_DEDODE_WEIGHTS"}
+
+
+def learned_weights(seed=SEED):
+    """Seeded random weights in the npz layout: SuperPoint (64/64/128/128
+    + 256) and DISK at their published widths, LightGlue at its published
+    width (256-d, 4 heads, 9 layers) for SuperPoint (256 in) and DISK (128
+    in), DeDoDe at ``random_weights``' widths (the published L/B widths
+    live in the checkpoints)."""
+    g = torch.Generator().manual_seed(seed)
+    return {"superpoint": superpoint.random_weights(g),
+            "disk": disk.random_weights(g),
+            "dedode": dedode.random_weights(g),
+            "superpoint_lightglue": lightglue.random_weights(g, 256),
+            "disk_lightglue": lightglue.random_weights(g, disk.DESC_DIM)}
+
+
+def keypoints_agree(a, b, desc_tol, score_rtol=KP_SCORE_RTOL):
+    """How far two runs of one extractor, (xy, score, desc, valid) each,
+    agree; equal up to float rounding when the returned ``failures`` list
+    is empty.  The valid keypoints are matched by their pixel.  Each one
+    valid in both runs has its score within ``score_rtol`` of the largest
+    finite |score| and its descriptor within ``desc_tol``; two such
+    keypoints come in another order only where their scores tie within
+    twice that (a swap of slots); a keypoint valid in one run only (a local
+    maximum, a top-k cut or a threshold decided within rounding, which
+    shifts the slots after it) is at most 1% of them.  The slots valid in
+    neither run (the NMS's exact ties) are not compared here."""
+    xa, sa, da, va = a
+    xb, sb, db, vb = b
+    finite = np.isfinite(sa)
+    tol = score_rtol * max(float(np.abs(sa[finite]).max(initial=0.0)), 1e-30)
+    slot_a = {tuple(x): i for i, x in enumerate(xa) if va[i]}
+    pairs = [(slot_a.pop(tuple(xb[s])), s) for s in np.flatnonzero(vb)
+             if tuple(xb[s]) in slot_a]
+    ia, ib = (np.array(c, np.int64) for c in zip(*pairs)) if pairs else \
+        (np.zeros(0, np.int64),) * 2
+    order = np.argsort(ia)
+    ia, ib = ia[order], ib[order]
+    score_err = float(np.abs(sa[ia] - sb[ib]).max(initial=0.0))
+    desc_err = float(np.abs(da[ia] - db[ib]).max(initial=0.0))
+    # an inversion (j before k in run a, after it in run b) must be a tie:
+    # every keypoint scoring more than 2 tol above k in run a comes before
+    # k in run b
+    s_a = sa[ia]
+    above = np.searchsorted(-s_a, -(s_a + 2 * tol), side="left")
+    prefix_max = np.maximum.accumulate(ib) if len(ib) else ib
+    untied = int(np.sum((above > 0) & (prefix_max[np.maximum(above - 1, 0)]
+                                       > ib)))
+    n = max(int(va.sum()), int(vb.sum()), 1)
+    one_run = int(vb.sum()) - len(ia) + len(slot_a)
+    checks = {f"scores within {score_rtol:g} of the largest": score_err <= tol,
+              f"descriptors within {desc_tol:g}": desc_err <= desc_tol,
+              "slots differ only among tied scores": untied == 0,
+              "at most 1% of the keypoints in one run only":
+                  one_run <= 0.01 * n}
+    return dict(valid=n, slots_moved=int(np.sum(ia != ib)),
+                keypoints_in_one_run=one_run, untied_inversions=untied,
+                score_max_abs_err=score_err, score_tol=tol,
+                desc_max_abs_err=desc_err,
+                failures=[k for k, ok in checks.items() if not ok])
+
+
+def lightglue_flop(M0, M1, input_dim):
+    """FLOP of one LightGlue pair, reckoned from the code's products (the
+    softmaxes, norms and activations left out): the input projections,
+    then per layer the two self blocks and the cross block, then the
+    assignment."""
+    def proj(rows, din, dout):
+        return 2 * rows * din * dout
+
+    D = lightglue.DIM
+    flop = proj(M0 + M1, input_dim, D)
+    for _ in range(lightglue.N_LAYERS):
+        for m in (M0, M1):                      # self blocks
+            flop += proj(m, D, 3 * D) + proj(m, D, D) + 4 * m * m * D \
+                + proj(m, 2 * D, 2 * D) + proj(m, 2 * D, D)
+        flop += 2 * proj(M0 + M1, D, D) + 2 * M0 * M1 * D * 3 \
+            + proj(M0 + M1, D, D) + proj(M0 + M1, 2 * D, 2 * D) \
+            + proj(M0 + M1, 2 * D, D)           # cross block
+    return flop + proj(M0 + M1, D, D + 1) + 2 * M0 * M1 * D
+
+
+def learned_card_vs_cpu(weights, img_path, lg_pair_paths, device):
+    """One view per extractor and one pair for LightGlue (SuperPoint's),
+    each run on the card and by the port on the CPU in float32: the same
+    valid keypoints in the same slots up to ties (``keypoints_agree``),
+    descriptors within 1e-4; LightGlue's log-scores over the valid entries within
+    ``LG_SCORE_TOL`` and at least 99% of the mutual-argmax matches equal
+    (threshold 0: with random weights no pair passes the handler's 0.1).
+    Returns each one's record with its ``failures`` (empty when it
+    agrees)."""
+    cpu = torch.device("cpu")
+    out = {}
+    for name, (mod, cfg, build) in EXTRACTORS.items():
+        img, _, _ = handler.load_gray(img_path, 1600, rgb=name != "superpoint")
+        cfg = cfg(max_keypoints=LEARN_KEYPOINTS)
+        runs = [mod.extract(img, build(weights[name], dev), cfg, dev)
+                for dev in (cpu, device)]
+        out[name] = keypoints_agree(*runs, desc_tol=1e-4)
+
+    net = convert.superpoint_from_numpy(weights["superpoint"], device)
+    cfg = superpoint.SuperPointConfig(max_keypoints=LEARN_KEYPOINTS)
+    feats = []
+    for p in lg_pair_paths:
+        img, _, (w, h) = handler.load_gray(p, 1600)
+        xy, _, d, v = superpoint.extract(img, net, cfg, device)
+        feats.append((xy, d, v, np.array([w, h], np.float32)))
+    res = []
+    for dev in (device, cpu):
+        lg = convert.lightglue_from_numpy(weights["superpoint_lightglue"], dev)
+        (k0, d0, m0, s0), (k1, d1, m1, s1) = [
+            [torch.as_tensor(a, device=dev)[None] for a in f] for f in feats]
+        with torch.inference_mode(), full_f32():
+            scores = lg(k0, d0, m0, k1, d1, m1, s0, s1)
+            m, c, _ = lightglue.filter_matches(scores, m0, m1, 0.0,
+                                               LEARN_KEYPOINTS)
+        res.append((scores[0].cpu(), m[0].cpu(), int(c[0]),
+                    (m0[0, :, None] & m1[0, None, :]).cpu()))
+    (sg, mg, cg, mask), (sc, mc, cc, _) = res
+    lg_err = float((sg - sc).abs()[mask].max())
+    rows_g = {tuple(r) for r in mg[:cg].tolist()}
+    rows_c = {tuple(r) for r in mc[:cc].tolist()}
+    differ = len(rows_g ^ rows_c)
+    checks = {
+        f"log-scores within {LG_SCORE_TOL:g}": lg_err <= LG_SCORE_TOL,
+        ">= 99% of the matches equal":
+            differ <= 0.01 * max(len(rows_g), len(rows_c)),
+    }
+    out["lightglue"] = dict(M=int(feats[0][2].size), threshold=0.0,
+                            matches_card=int(cg), matches_cpu=int(cc),
+                            matches_differ=differ,
+                            log_score_max_abs_err=lg_err,
+                            failures=[k for k, ok in checks.items() if not ok])
+    return out
+
+
+def lightglue_semantics(weights, device, M=LEARN_KEYPOINTS, seed=SEED):
+    """``tests/test_lightglue.py``'s semantic bars at full width: M random
+    unit descriptors at random keypoints of a 400x400 image, threshold 0;
+    an identical set matched with itself, then a permuted copy.  Shares are
+    of all M keypoints (the correct matches over M)."""
+    rng = np.random.default_rng(seed)
+    net = convert.lightglue_from_numpy(weights["superpoint_lightglue"], device)
+    kp = rng.uniform(0, 400, (M, 2)).astype(np.float32)
+    d = rng.standard_normal((M, 256)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v = np.ones(M, bool)
+    cfg = lightglue.LightGlueConfig(filter_threshold=0.0, max_matches=M)
+    m, _ = lightglue.match_pair(kp, d, v, kp, d, v, (400.0, 400.0), net, cfg,
+                                device=device)
+    perm = rng.permutation(M)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(M)
+    mp, _ = lightglue.match_pair(kp, d, v, kp[perm], d[perm], v,
+                                 (400.0, 400.0), net, cfg, device=device)
+    return dict(semantic_M=M, identity_matches=len(m),
+                identity_share=float(np.sum(m[:, 0] == m[:, 1]) / M),
+                permutation_matches=len(mp),
+                permutation_share=float(np.sum(mp[:, 1] == inv[mp[:, 0]]) / M))
+
+
+def run_learned(device):
+    """The learned front-ends through ``generate_database`` on the card,
+    with seeded random weights (``learned_weights``) written as npz files
+    and found through the handler's environment variables:
+    ``superpoint+lightglue`` on 40 views of the plane scene at 640x480
+    (2,048 keypoints, 780 pairs), ``disk+lightglue``, ``superpoint`` (the
+    ratio matcher at D = 256) and ``dedode`` on 16 of them; each database
+    read back with the counts written; one view per extractor and one pair
+    for LightGlue held against the port's CPU run; LightGlue's semantic
+    bars at M = 2,048.  One ``LEARNED`` line."""
+    weights = learned_weights()
+    envs = list(WEIGHT_ENV.values()) + ["INSTANTSFM_LIGHTGLUE_WEIGHTS"]
+    saved = {k: os.environ.get(k) for k in envs}
+    fronts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_learned_") as work:
+        paths = {}
+        for k, w in weights.items():
+            paths[k] = os.path.join(work, f"{k}.npz")
+            np.savez(paths[k], **w)
+        t0 = time.perf_counter()
+        render_plane_scene(os.path.join(work, "all"), device,
+                           n_cams=LEARN_VIEWS, W=LEARN_W, H=LEARN_H,
+                           f=LEARN_W * PIX_F / PIX_W)
+        render_s = time.perf_counter() - t0
+        dirs = {LEARN_VIEWS: os.path.join(work, "all", "images"),
+                LEARN_OTHER_VIEWS: os.path.join(work, "some", "images")}
+        names = sorted(os.listdir(dirs[LEARN_VIEWS]))
+        os.makedirs(dirs[LEARN_OTHER_VIEWS])
+        for i in np.linspace(0, LEARN_VIEWS - 1, LEARN_OTHER_VIEWS).round():
+            shutil.copy(os.path.join(dirs[LEARN_VIEWS], names[int(i)]),
+                        dirs[LEARN_OTHER_VIEWS])
+        try:
+            for k, env in WEIGHT_ENV.items():
+                os.environ[env] = paths[k]
+            for name, n in (("superpoint+lightglue", LEARN_VIEWS),
+                            ("disk+lightglue", LEARN_OTHER_VIEWS),
+                            ("superpoint", LEARN_OTHER_VIEWS),
+                            ("dedode", LEARN_OTHER_VIEWS)):
+                extractor = name.split("+")[0]
+                if name.endswith("+lightglue"):
+                    os.environ["INSTANTSFM_LIGHTGLUE_WEIGHTS"] = \
+                        paths[f"{extractor}_lightglue"]
+                db = os.path.join(work, f"{extractor}_{n}.db")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                st = handler.generate_database(
+                    dirs[n], db, feature_name=name, config=Config("colmap"),
+                    max_keypoints=LEARN_KEYPOINTS, log=lambda *a: None,
+                    device=device)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                vg, _, images, fname = read_colmap_database(db)
+                rec = dict(views=n, **st,
+                           extract_ms_per_image=st["extract_s"] * 1e3 / n,
+                           peak_device_gb=peak_gb,
+                           db_images=images.num_images,
+                           db_keypoints=len(images.kp_xy),
+                           db_pairs=vg.num_pairs, db_matches=len(vg.matches),
+                           db_feature_name=fname)
+                if name.endswith("+lightglue"):
+                    din = weights[f"{extractor}_lightglue"][
+                        "input_proj_w"].shape[1]
+                    flop = st["pairs"] * lightglue_flop(
+                        LEARN_KEYPOINTS, LEARN_KEYPOINTS, din)
+                    bound_s = flop / PEAK_FLOPS[torch.float32]
+                    rec.update(lightglue_tflop=flop / 1e12,
+                               lightglue_bound_s=bound_s,
+                               lightglue_bound_by="operations",
+                               lightglue_share_of_bound=bound_s / st["match_s"])
+                fronts[name] = rec
+            card_cpu = learned_card_vs_cpu(
+                weights, os.path.join(dirs[LEARN_VIEWS], names[0]),
+                [os.path.join(dirs[LEARN_VIEWS], p) for p in names[:2]],
+                device)
+            sem = lightglue_semantics(weights, device)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    rec = dict(width=LEARN_W, height=LEARN_H, max_keypoints=LEARN_KEYPOINTS,
+               render_s=render_s, front_ends=fronts, card_vs_cpu=card_cpu,
+               **sem, weights="seeded random; SuperPoint, DISK and LightGlue "
+               "at their published widths, DeDoDe at random_weights' widths "
+               "(its published L/B widths need the checkpoint)",
+               card=card_line())
+    log("LEARNED " + json.dumps(rec))
+    checks = {"identity >= 95% at M = 2,048": sem["identity_share"] >= 0.95,
+              "permutation >= 90% at M = 2,048":
+                  sem["permutation_share"] >= 0.90}
+    for name, r in card_cpu.items():
+        checks[f"{name}: card equals CPU ({r['failures']})"] = \
+            not r["failures"]
+    for name, r in fronts.items():
+        n = r["views"]
+        checks.update({
+            f"{name}: {n} images, keypoints and feature name read back":
+                r["db_images"] == n and r["db_keypoints"] == r["keypoints"]
+                and r["db_feature_name"] == name,
+            f"{name}: matches read back":
+                r["db_pairs"] == r["verified_pairs"]
+                and r["db_matches"] == r["verified_matches"],
+            f"{name}: {n * (n - 1) // 2} pairs, keypoints found":
+                r["pairs"] == n * (n - 1) // 2 and r["keypoints"] > 100 * n,
+        })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"learned front-ends failed: {failed}")
     return rec
 
 
@@ -1830,7 +2180,7 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
                                      for c in f32_cases))
 
 
-def k23_entry(which, main_case, hand_cases, gs_rec):
+def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
     return kernel_entry(
         ("composite_fwd", "composite_bwd")[which],
@@ -1846,7 +2196,9 @@ def k23_entry(which, main_case, hand_cases, gs_rec):
         pairs_after_cull=main_case["pairs_after_cull"],
         max_rel_err=main_case["max_rel_err"],
         max_rel_err_hand_built=max(c[which]["max_rel_err"]
-                                   for c in hand_cases.values()))
+                                   for c in hand_cases.values()),
+        launches_pixels_tail=pix_rec[("gs_k2_launches",
+                                      "gs_k3_launches")[which]])
 
 
 def main(argv=None):
@@ -1896,15 +2248,16 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
         sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)
         retri_rec = run_sfm_retri(device, dbpath, sfm_gt)
-    run_pixels(device)
+    pix_rec = run_pixels(device)
     run_feat(device)
+    run_learned(device)
     if args.profile:
         profile_ba_step(device)
     gs_rec, tiles = run_gs(device, profile=args.profile)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec)] + [
-        k23_entry(which, k23_main[which], k23_hand, gs_rec)
+        k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec)
         for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,12 @@ Counterpart of ``instantsfm_tpu/cli/feat.py``:
 
     python -m instantsfm_tpu_torch.cli.feat --data_path SCENE
         [--max_keypoints N] [--match_ratio R] [--sequential_overlap N]
-        [--max_image_size N] [--feature_name sift_tpu|colmap]
-        [--device cuda|cpu]
+        [--max_image_size N] [--feature_name NAME] [--device cuda|cpu]
+
+NAME is ``sift_tpu`` (default), ``superpoint`` (or ``superpoint_tpu``),
+``superpoint+lightglue``, ``disk``, ``disk+lightglue``, ``dedode`` or
+``colmap``, as JAX's CLI takes; the learned ones need their converted
+weights (``features/handler.py``).
 
 SCENE holds ``images/`` (or ``color/``); the database is written to
 ``SCENE/database.db``, and an existing database is left as it is.
@@ -27,7 +31,8 @@ def main(argv=None):
     parser.add_argument("--sequential_overlap", type=int, default=0,
                         help=">0 switches exhaustive matching to sequential")
     parser.add_argument("--match_ratio", type=float, default=None,
-                        help="Lowe ratio (default 0.85)")
+                        help="Lowe ratio (default 0.85 SIFT, 0.95 SuperPoint "
+                             "and DISK, 0.92 DeDoDe)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 

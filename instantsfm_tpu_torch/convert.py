@@ -5,7 +5,11 @@ as numpy arrays (any object with the same field names, e.g. the JAX
 NamedTuples after ``np.asarray`` on every leaf) into this port's tensors on
 ``device``; ``to_numpy`` maps the port's tensors back to numpy.
 ``splats_from_numpy``/``splats_to_numpy`` do the same for the 3DGS
-``Splats``.
+``Splats``.  ``superpoint_from_numpy``, ``disk_from_numpy``,
+``lightglue_from_numpy`` and ``dedode_from_numpy`` build the learned
+front-ends' modules from a weight dict in the npz layout both packages
+share (JAX's ``random_weights`` after ``np.asarray``, or ``load_weights``
+of a converted checkpoint): HWIO convolutions become OIHW.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from instantsfm_tpu_torch.features import dedode, disk, lightglue, superpoint
 from instantsfm_tpu_torch.gs.splats import FIELDS, Splats
 from instantsfm_tpu_torch.solve.block_lm import Observations, Params
 from instantsfm_tpu_torch.utils.device import resolve_device
@@ -70,3 +75,71 @@ def splats_from_numpy(splats_np, device="cuda") -> Splats:
 def splats_to_numpy(splats: Splats) -> dict:
     """The port's ``Splats`` -> {field: numpy array}."""
     return {f: getattr(splats, f).detach().cpu().numpy() for f in FIELDS}
+
+
+def _weights(weights, device, dtype):
+    """{name: array} -> {name: tensor on ``device``}; 4-d arrays (HWIO
+    convolutions) transposed to OIHW; 0-d entries dropped."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in weights.items():
+        a = np.asarray(v)
+        if a.ndim == 0:
+            continue
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        out[k] = torch.tensor(np.ascontiguousarray(a), device=dev, dtype=dtype)
+    return out
+
+
+def _load(module, state):
+    module.load_state_dict(state, strict=True)
+    return module.eval().requires_grad_(False)
+
+
+def superpoint_from_numpy(weights, device="cuda", dtype=torch.float32):
+    """SuperPoint npz dict -> ``features.superpoint.SuperPoint``."""
+    w = _weights(weights, device, dtype)
+    state = {f"{k[:-2]}.{'weight' if k.endswith('_w') else 'bias'}": v
+             for k, v in w.items()}
+    return _load(superpoint.SuperPoint().to(device=w["conv1a_w"].device,
+                                            dtype=dtype), state)
+
+
+def disk_from_numpy(weights, device="cuda", dtype=torch.float32):
+    """DISK npz dict -> ``features.disk.Disk`` (gated where the dict has a
+    ``_prelu`` entry, with its shape)."""
+    w = _weights(weights, device, dtype)
+    gated = [k[:-len("_prelu")] for k in w if k.endswith("_prelu")]
+    net = disk.Disk(gated).to(device=w["down0_w"].device, dtype=dtype)
+    state = {}
+    for k, v in w.items():
+        block, kind = k.rsplit("_", 1)
+        if kind == "prelu":
+            net.blocks[block].prelu = torch.nn.Parameter(v.clone())
+        state[f"blocks.{block}." + {"w": "conv.weight", "b": "conv.bias",
+                                    "prelu": "prelu"}[kind]] = v
+    return _load(net, state)
+
+
+def lightglue_from_numpy(weights, device="cuda", dtype=torch.float32):
+    """LightGlue npz dict -> ``features.lightglue.LightGlue``; the input
+    width (256 for SuperPoint, 128 for DISK) comes from ``input_proj_w``."""
+    w = _weights(weights, device, dtype)
+    net = lightglue.LightGlue(input_dim=w["input_proj_w"].shape[1]).to(
+        device=w["input_proj_w"].device, dtype=dtype)
+    state = {"posenc_Wr": w.pop("posenc_Wr")}
+    for k, v in w.items():
+        stem, wb = k[:-2], "weight" if k.endswith("_w") else "bias"
+        if stem.startswith("l") and stem[1].isdigit():
+            layer, kind, name = stem[1:].split("_", 2)
+            stem = f"{kind}_blocks.{layer}.{name}"
+        state[f"{stem}.{wb}"] = v
+    return _load(net, state)
+
+
+def dedode_from_numpy(weights, device="cuda", dtype=torch.float32):
+    """DeDoDe npz dict -> ``features.dedode.DeDoDe`` (every array kept under
+    its npz name)."""
+    return dedode.DeDoDe(_weights(weights, device, dtype)).eval() \
+        .requires_grad_(False)

@@ -426,6 +426,116 @@ def test_sift_and_matching_card_match_cpu(tmp_path):
         assert len(got ^ want) <= 0.01 * len(want), pair
 
 
+def _learned_nets(device, seed=0):
+    """The learned front-ends' modules from ``chip_smoke.learned_weights``
+    (seeded random, SuperPoint, DISK and LightGlue at their published
+    widths) on ``device``."""
+    import chip_smoke
+    from instantsfm_tpu_torch import convert
+
+    w = chip_smoke.learned_weights(seed)
+    nets = {name: build(w[name], device)
+            for name, (_, _, build) in chip_smoke.EXTRACTORS.items()}
+    nets["lightglue"] = convert.lightglue_from_numpy(
+        w["superpoint_lightglue"], device)
+    return w, nets
+
+
+@pytest.mark.cuda
+def test_learned_extractors_and_lightglue_card_match_cpu(tmp_path):
+    """SuperPoint, DISK and DeDoDe (2,048 keypoints) on two views of the
+    plane scene at 480x360, on the card with TF32 turned on around the
+    calls (the extractors must keep full float32) against the CPU: the
+    same valid keypoints but for 1%, scores within 1e-4 of the largest, in
+    the same slots up to score ties, descriptors within 1e-4
+    (``chip_smoke.keypoints_agree``).  LightGlue on SuperPoint's two
+    views: log-scores over the valid entries within 1e-4, at least 99% of
+    the mutual-argmax matches (threshold 0; random weights leave few
+    between two views) equal."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.features import lightglue
+    from instantsfm_tpu_torch.features.handler import load_gray
+    from instantsfm_tpu_torch.utils.device import full_f32
+
+    chip_smoke.render_plane_scene(str(tmp_path), "cuda")
+    _, card = _learned_nets("cuda")
+    _, cpu = _learned_nets("cpu")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    feats = []
+    for i in range(2):
+        path = str(tmp_path / "images" / f"v{i:03d}.png")
+        for name, (mod, cfg, _) in chip_smoke.EXTRACTORS.items():
+            img, _, (w, h) = load_gray(path, 1600, rgb=name != "superpoint")
+            cfg = cfg(max_keypoints=2048)
+            want = mod.extract(img, cpu[name], cfg, device="cpu")
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                got = mod.extract(img, card[name], cfg, device="cuda")
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = tf32
+            assert want[3].sum() > 500
+            agree = chip_smoke.keypoints_agree(want, got, desc_tol=1e-4)
+            assert agree["failures"] == [], (name, agree)
+            if name == "superpoint":
+                feats.append((want[0], want[2], want[3],
+                              np.array([w, h], np.float32)))
+    res = {}
+    for dev, net in (("cpu", cpu["lightglue"]), ("cuda", card["lightglue"])):
+        (k0, d0, m0, s0), (k1, d1, m1, s1) = [
+            [torch.as_tensor(a, device=dev)[None] for a in f] for f in feats]
+        torch.backends.cuda.matmul.allow_tf32 = dev == "cuda"
+        try:
+            with torch.inference_mode(), full_f32():
+                scores = net(k0, d0, m0, k1, d1, m1, s0, s1)
+                m, c, _ = lightglue.filter_matches(scores, m0, m1, 0.0, 2048)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+        mask = (m0[0, :, None] & m1[0, None, :]).cpu()
+        res[dev] = (scores[0].cpu()[mask], {tuple(r) for r in
+                                            m[0, :int(c[0])].tolist()})
+    assert float((res["cuda"][0] - res["cpu"][0]).abs().max()) <= 1e-4
+    want, got = res["cpu"][1], res["cuda"][1]
+    assert len(got ^ want) <= 0.01 * len(want)
+
+
+@pytest.mark.cuda
+def test_generate_database_superpoint_lightglue_on_card(tmp_path,
+                                                        monkeypatch):
+    """``generate_database("superpoint+lightglue")`` on the card, on four
+    views of the plane scene with seeded random weights written as npz
+    files: the database holds every image, the keypoints the CPU run
+    writes (in count) and all 6 pairs matched; read back by
+    ``read_colmap_database``."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.features.handler import generate_database
+    from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
+
+    chip_smoke.render_plane_scene(str(tmp_path / "scene"), "cuda", n_cams=4)
+    weights, _ = _learned_nets("cpu")
+    for key, env in (("superpoint", "INSTANTSFM_SUPERPOINT_WEIGHTS"),
+                     ("superpoint_lightglue", "INSTANTSFM_LIGHTGLUE_WEIGHTS")):
+        np.savez(tmp_path / f"{key}.npz", **weights[key])
+        monkeypatch.setenv(env, str(tmp_path / f"{key}.npz"))
+    stats = {}
+    for dev in ("cpu", "cuda"):
+        stats[dev] = generate_database(
+            str(tmp_path / "scene" / "images"), str(tmp_path / f"{dev}.db"),
+            feature_name="superpoint+lightglue", max_keypoints=2048,
+            log=lambda *a: None, device=dev)
+    st = stats["cuda"]
+    assert st["images"] == 4 and st["pairs"] == 6
+    assert st["keypoints"] == stats["cpu"]["keypoints"] > 4 * 500
+    vg, _, images, name = read_colmap_database(str(tmp_path / "cuda.db"))
+    assert name == "superpoint+lightglue" and images.num_images == 4
+    assert len(images.kp_xy) == st["keypoints"]
+    assert len(vg.matches) == st["verified_matches"]
+
+
 @pytest.mark.cuda
 def test_svd3x3_large_batch_card_matches_cpu():
     """``math/epipolar.py::svd3x3`` on 40,000 matrices on the card, the

@@ -16,7 +16,10 @@
   integer) and match rows, read back with each package's reader;
 * ``io.image.resize`` against PIL's bilinear resize: within one grey level;
 * ``cli.feat`` then ``cli.sfm`` with ``--device cpu`` on a small render of
-  ``tests/test_pixels_e2e.py``'s scene: a database and a sparse model.
+  ``tests/test_pixels_e2e.py``'s scene: a database and a sparse model,
+  then that test's 3DGS tail for 15 steps (``chip_smoke.pixels_gs_tail``):
+  the loss falls;
+* the learned front-ends raise without their weights.
 """
 
 import os
@@ -163,9 +166,17 @@ def test_generate_database_matches_jax(shifted_images, tmp_path):
     assert jread_db(dbs["port"])[2].num_images == 3
 
 
-@pytest.mark.parametrize("name", ["superpoint", "disk+lightglue", "dedode"])
-def test_learned_front_ends_raise(shifted_images, tmp_path, name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+@pytest.mark.parametrize("name,env,match", [
+    ("superpoint", "INSTANTSFM_SUPERPOINT_WEIGHTS", "superpoint_v1.pth"),
+    ("disk+lightglue", "INSTANTSFM_LIGHTGLUE_WEIGHTS", "disk_lightglue.pth"),
+    ("dedode", "INSTANTSFM_DEDODE_WEIGHTS", "DeDoDe")])
+def test_learned_front_ends_raise(shifted_images, tmp_path, monkeypatch, name,
+                                  env, match):
+    """The learned front-ends are ported and weight-gated: without their
+    weight file they raise ``RuntimeError`` naming the checkpoint, as JAX's
+    handler does (``tests/test_torch_learned_features.py`` runs them)."""
+    monkeypatch.setenv(env, str(tmp_path / "absent.npz"))
+    with pytest.raises(RuntimeError, match=match):
         generate_database(os.path.join(shifted_images, "images"),
                           str(tmp_path / "x.db"), feature_name=name,
                           device="cpu")
@@ -189,7 +200,7 @@ def test_resize_matches_pil(shifted_images):
     assert (w, h) == (320, 240) and scale == 0.5 and img.shape == (120, 160)
 
 
-def test_cli_feat_then_sfm_on_cpu(tmp_path):
+def test_cli_feat_then_sfm_on_cpu(tmp_path, monkeypatch):
     """``python -m instantsfm_tpu_torch.cli.feat`` then ``cli.sfm``, both
     with ``--device cpu``, on ``tests/test_pixels_e2e.py``'s scene rendered
     by the port (``chip_smoke.render_plane_scene``: 16 views, here at
@@ -221,3 +232,11 @@ def test_cli_feat_then_sfm_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     cams, imgs, pts = cmio.read_model(str(scene / "sparse" / "0"))
     assert len(cams) == 1 and len(imgs) >= 15 and len(pts) > 100
+    # the 3DGS tail of tests/test_pixels_e2e.py, cut to 15 steps: PSNR > 12
+    # and K2/K3's launches are checked on the card (chip_smoke.py PIXELS).
+    # Runner mirrors its scalars into tensorboard where that imports, which
+    # pulls in TensorFlow where installed; its JSONL log is enough here
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    gs = chip_smoke.pixels_gs_tail(str(scene), torch.device("cpu"), steps=15)
+    assert gs["gs_losses_finite"] and np.isfinite(gs["gs_psnr"])
+    assert gs["gs_loss_last10"] < gs["gs_loss_first5"]
