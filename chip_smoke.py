@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py            # the check
     python3 chip_smoke.py --profile  # also profile one BA LM step, the
                                      # relative-pose stage and a 3DGS step
+                                     # with and without the options
 
 Phases (any failure exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
@@ -70,14 +71,31 @@ Phases (any failure exits non-zero):
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
-     and K3.  K2/K3 are then held against their plain versions on one
-     view's real tiles;
-  11. prints the kernels line, the card line and, last, the ok line.
+     and K3;
+  11. 3DGS options on that scene (``GS_OPTS`` line): run A trains 40 steps
+     with ``pose_opt``, ``app_opt``, the bilateral grid, the depth loss,
+     ``visible_adam``, PNG compression and pose noise, with LPIPS (seeded
+     random weights behind ``INSTANTSFM_LPIPS_WEIGHTS``) at the step-40
+     eval, then exports the PLY from the checkpoint and renders an ellipse
+     trajectory; K3 is held against its plain version on a depth-loss
+     step's gradient (nonzero alpha and depth rows), selective Adam's
+     unseen rows must stay bit for bit, the compressed model within its
+     quantisation bounds, the card's LPIPS within 1e-4 of the CPU's.  Run
+     B trains 40 steps with ``strategy="mcmc"``, relocating at steps 10,
+     20, 30; each relocation must move its dead rows and only them, the
+     rows outside the pool never move, and one relocation on the card
+     must equal the CPU's on the same draws.  Run A's training options
+     then take 10 steps on a small scene on the CPU and on the card, whose
+     losses, pose deltas and bilateral grids must agree.  K2/K3 are then
+     held against their plain versions on one view's real tiles of the GS
+     phase;
+  12. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -95,8 +113,13 @@ from instantsfm_tpu_torch.config import Config
 from instantsfm_tpu_torch.features import (dedode, disk, handler, lightglue,
                                            superpoint)
 from instantsfm_tpu_torch.gs import composite as k23
+from instantsfm_tpu_torch.gs import compression as gs_compression
+from instantsfm_tpu_torch.gs import lpips as gs_lpips
+from instantsfm_tpu_torch.gs import optim as gs_optim
+from instantsfm_tpu_torch.gs import ply as gs_ply
 from instantsfm_tpu_torch.gs import rasterize as gs_raster
 from instantsfm_tpu_torch.gs import sh as gs_sh
+from instantsfm_tpu_torch.gs import splats as gs_splats
 from instantsfm_tpu_torch.gs import strategy as gs_strategy
 from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
 from instantsfm_tpu_torch.io import colmap_model as cmio
@@ -1919,7 +1942,9 @@ def make_gs_scene(root, device, num_pts, num_views, W, H, seed=SEED):
     ``num_pts`` points: the gaussians' centres and 1% outliers in a shell
     of radius 3..5 that the photos do not show, as SfM leaves some.  The
     outliers are sparse, so their initial scales exceed the strategy's
-    prune_scale3d."""
+    prune_scale3d.  Each point's track lists the views it projects into
+    (in front of the camera, inside the image), which is where the depth
+    loss reads it."""
     rng = np.random.default_rng(seed)
     n_out = num_pts // 100
     n_gt = num_pts - n_out
@@ -1933,18 +1958,24 @@ def make_gs_scene(root, device, num_pts, num_views, W, H, seed=SEED):
     d = rng.standard_normal((n_out, 3))
     outliers = d / np.linalg.norm(d, axis=1, keepdims=True) \
         * rng.uniform(3, 5, (n_out, 1))
+    sfm_xyz = np.concatenate([pts, outliers])
     f = 600.0
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
     dev32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     gauss = [dev32(a) for a in (pts, quats, scales, opac, sh)]
     os.makedirs(os.path.join(root, "images"))
     images = []
+    seen = np.zeros((num_views, num_pts), bool)
     for i, ang in enumerate(np.linspace(0, 2 * np.pi, num_views,
                                         endpoint=False)):
         c = np.array([7 * np.cos(ang), 7 * np.sin(ang), 1.5])
         R = ring_rotation(c)
         view = np.eye(4)
         view[:3, :3], view[:3, 3] = R, -R @ c
+        p_cam = (sfm_xyz - c) @ R.T
+        z = np.maximum(p_cam[:, 2], 1e-9)
+        u, v = p_cam[:, 0] / z * f + W / 2, p_cam[:, 1] / z * f + H / 2
+        seen[i] = (p_cam[:, 2] > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
         with torch.no_grad():
             out = gs_raster.rasterize(*gauss, dev32(view), dev32(K), width=W,
                                       height=H, sh_degree=3)
@@ -1955,15 +1986,20 @@ def make_gs_scene(root, device, num_pts, num_views, W, H, seed=SEED):
         images.append(cmio.ModelImage(
             i + 1, np.array([q[3], q[0], q[1], q[2]]), -R @ c, 1, name,
             np.zeros((0, 2)), np.zeros(0, np.int64)))
-    sfm_xyz = np.concatenate([pts, outliers])
     sfm_rgb = (np.concatenate([colors, rng.uniform(0, 1, (n_out, 3))])
                * 255).astype(np.uint8)
-    points = [cmio.ModelPoint3D(p + 1, sfm_xyz[p], sfm_rgb[p], 0.0,
-                                np.array([1]), np.array([0]))
-              for p in range(num_pts)]
     cameras = [cmio.ModelCamera(1, cm.PINHOLE, W, H,
                                 np.array([f, f, W / 2, H / 2]))]
-    cmio.write_model(cameras, images, points, os.path.join(root, "sparse", "0"))
+    model = os.path.join(root, "sparse", "0")
+    os.makedirs(model)
+    cmio.write_cameras_binary(cameras, os.path.join(model, "cameras.bin"))
+    cmio.write_images_binary(images, os.path.join(model, "images.bin"))
+    pt_of, view_of = seen.T.nonzero()                # tracks, point-major
+    cmio.write_points3D_binary_soa(
+        os.path.join(model, "points3D.bin"), np.arange(1, num_pts + 1),
+        sfm_xyz, sfm_rgb, np.zeros(num_pts),
+        np.concatenate([[0], np.cumsum(seen.sum(0))]), view_of + 1,
+        np.zeros(len(view_of), np.int64))
 
 
 def main_shape_tiles(runner, view_index=0):
@@ -1985,8 +2021,9 @@ def main_shape_tiles(runner, view_index=0):
                                     cfg.tile_capacity)
 
 
-def profile_gs_step(runner):
-    """Device time by kernel over one training step of the trained model."""
+def profile_gs_step(runner, label="GS_PROFILE", trace="gs_step_trace.json"):
+    """Device time by kernel over one training step of the trained model,
+    and the host's aten calls (count, and the top ones by self time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2005,52 +2042,69 @@ def profile_gs_step(runner):
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.key.startswith("aten::")), reverse=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "gs_step_trace.json"))
-    log("GS_PROFILE " + json.dumps(dict(
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace))
+    log(f"{label} " + json.dumps(dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms,
-        top=[dict(us=us, n=n, name=name[:80]) for us, n, name in rows[:15]])))
+        host_aten_calls=sum(n for _, n, _ in host),
+        top=[dict(us=us, n=n, name=name[:80]) for us, n, name in rows[:15]],
+        top_host=[dict(us=us, n=n, name=name[:60])
+                  for us, n, name in host[:10]])))
 
 
-def run_gs(device, profile=False):
-    """Train 3DGS through ``Runner`` on the card; returns (GS record,
-    one view's compositing inputs at the main shape)."""
-    with tempfile.TemporaryDirectory(prefix="gs_smoke_") as root:
-        t0 = time.perf_counter()
-        make_gs_scene(root, device, GS_POINTS, GS_VIEWS, GS_W, GS_H)
-        scene_s = time.perf_counter() - t0
-        cfg = GSConfig(data_dir=root, result_dir=os.path.join(root, "results"),
-                       max_steps=GS_STEPS, test_every=8, capacity_mult=4.0,
-                       sh_degree=3, sh_degree_interval=2, tile_capacity=512,
-                       tiles_per_gauss=16, eval_steps=(), save_steps=())
-        t0 = time.perf_counter()
-        runner = Runner(cfg, log=lambda *a: None, device=device)
-        setup_s = time.perf_counter() - t0
-        # refine at steps 10, 20, 30, opacity reset at 25: prune_too_big
-        # needs a refine after the first reset (step > reset_every); the
-        # outliers' scales make it prune at step 30
-        runner.strategy_cfg = gs_strategy.StrategyConfig(
-            refine_start_iter=10, refine_every=10, reset_every=GS_RESET_EVERY)
-        alive0 = int(runner.splats.alive.sum())
+def gs_main_cfg(root, result, **options):
+    """The 3DGS main shape's configuration (SH degree 3 from step 6, pool
+    4x the SfM points, 512 gaussians a tile, 16 tiles a gaussian)."""
+    kw = dict(data_dir=root, result_dir=os.path.join(root, result),
+              max_steps=GS_STEPS, test_every=8, capacity_mult=4.0,
+              sh_degree=3, sh_degree_interval=2, tile_capacity=512,
+              tiles_per_gauss=16, eval_steps=(), save_steps=())
+    return GSConfig(**{**kw, **options})
 
-        torch.cuda.synchronize()
-        k1.schur_wchain.launches = 0
-        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
-        t0 = time.perf_counter()
-        losses = runner.train()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
 
-        t0 = time.perf_counter()
-        stats = runner.eval(GS_STEPS)
-        eval_s = time.perf_counter() - t0
-        ckpt = runner.save_checkpoint(GS_STEPS)
-        ckpt_alive = int(np.load(ckpt)["alive"].sum())
-        tiles = main_shape_tiles(runner)
-        if profile:
-            profile_gs_step(runner)
+def gs_refine_schedule(runner):
+    """Refine at steps 10, 20, 30, opacity reset at 25: prune_too_big
+    needs a refine after the first reset (step > reset_every); the
+    outliers' scales make it prune at step 30."""
+    runner.strategy_cfg = gs_strategy.StrategyConfig(
+        refine_start_iter=10, refine_every=10, reset_every=GS_RESET_EVERY)
+
+
+def run_gs(device, root, profile=False):
+    """Write the 3DGS scene in ``root`` and train it through ``Runner`` on
+    the card; returns (GS record, one view's compositing inputs at the
+    main shape)."""
+    t0 = time.perf_counter()
+    make_gs_scene(root, device, GS_POINTS, GS_VIEWS, GS_W, GS_H)
+    scene_s = time.perf_counter() - t0
+    cfg = gs_main_cfg(root, "results")
+    t0 = time.perf_counter()
+    runner = Runner(cfg, log=lambda *a: None, device=device)
+    setup_s = time.perf_counter() - t0
+    gs_refine_schedule(runner)
+    alive0 = int(runner.splats.alive.sum())
+
+    torch.cuda.synchronize()
+    k1.schur_wchain.launches = 0
+    k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+    t0 = time.perf_counter()
+    losses = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+
+    t0 = time.perf_counter()
+    stats = runner.eval(GS_STEPS)
+    eval_s = time.perf_counter() - t0
+    ckpt = runner.save_checkpoint(GS_STEPS)
+    ckpt_alive = int(np.load(ckpt)["alive"].sum())
+    tiles = main_shape_tiles(runner)
+    if profile:
+        profile_gs_step(runner)
 
     step_ms = [s * 1e3 for s in runner.step_s]
     rec = dict(sfm_points=GS_POINTS, views=GS_VIEWS, width=GS_W, height=GS_H,
@@ -2087,6 +2141,437 @@ def run_gs(device, profile=False):
     if failed:
         raise AssertionError(f"3DGS main path failed: {failed}")
     return rec, tiles
+
+
+# ------------------------------------------------------ 3DGS options path
+
+GS_OPTS_LPIPS_TOL = 1e-4     # card against CPU, relative, float32
+GS_OPTS_TRAJ_FRAMES = 24
+GS_MCMC_MIN_OPACITY = 0.09   # below the start's 0.1, so that relocation
+                             # has rows to move by step 10
+GS_OPTS_PRE_RESET_RISE = 0.03   # run A's train-view objective at step 24
+                                # against the start: +1.5% on the H100 in
+                                # three runs (0.1185 -> 0.1203), bar twice that
+GS_OPTS_SMALL = (600, 6, 96, 72)   # points, views, W, H: the card tests'
+GS_OPTS_SMALL_STEPS = 10           # small 3DGS scene
+
+
+def gs_opts_card_vs_cpu(root, steps=GS_OPTS_SMALL_STEPS):
+    """Run A's training options (pose_opt, app_opt, the bilateral grid, the
+    depth loss, selective Adam, pose noise 0.01) for ``steps`` Runner steps
+    on a small scene written in ``root``, on the CPU and on the card from
+    one start: (record, checks).  Per-step losses within rel 1e-4; the pose
+    deltas within 0.05 of their lr, and moved; the bilateral grids 99.5%
+    within 0.05 of their lr and all within 2 lr a step (Adam moves an
+    element by up to about lr a step, and grid cells fed by flat black
+    background only get float-noise gradients of either sign, as
+    ``tests/test_torch_gs_options.py`` finds against JAX)."""
+    make_gs_scene(root, "cpu", *GS_OPTS_SMALL)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = GSConfig(data_dir=root, result_dir=os.path.join(root, dev),
+                       max_steps=steps, test_every=3, sh_degree=1,
+                       sh_degree_interval=1, tile_capacity=128,
+                       eval_steps=(), save_steps=(), capacity_mult=2.0,
+                       pose_opt=True, app_opt=True, use_bilateral_grid=True,
+                       depth_loss=True, visible_adam=True, pose_noise=0.01)
+        r = Runner(cfg, log=lambda *a: None, device=dev)
+        losses = np.asarray(r.train())
+        out[dev] = (losses, r.aux["pose"].pose_deltas.detach().cpu(),
+                    r.aux["bilgrid"].grids.detach().cpu())
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out["cuda"]
+    grid_lr = ((gg - gc).abs() / cfg.bilateral_grid_lr).numpy()
+    rec = dict(steps=steps, losses_cpu=lc.tolist(), losses_card=lg.tolist(),
+               loss_rel=float(np.max(np.abs(lg - lc) / np.abs(lc))),
+               pose_diff_lr=float((pg - pc).abs().max()) / cfg.pose_opt_lr,
+               pose_delta_max=float(pc.abs().max()),
+               grid_within_005_lr=float(np.mean(grid_lr <= 0.05)),
+               grid_diff_lr_max=float(grid_lr.max()))
+    checks = {
+        "options losses card = CPU": rec["loss_rel"] <= 1e-4,
+        "options pose deltas card = CPU":
+            rec["pose_diff_lr"] <= 0.05 and rec["pose_delta_max"] > 0,
+        "options bilateral grids card = CPU":
+            rec["grid_within_005_lr"] >= 0.995
+            and rec["grid_diff_lr_max"] <= 2 * steps,
+    }
+    return rec, checks
+
+
+class Spy:
+    """Replaces ``owner.name`` by ``wrap(original, *args, **kw)`` until
+    ``restore``."""
+
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name = owner, name
+        self.original = getattr(owner, name)
+        setattr(owner, name, lambda *a, **k: wrap(self.original, *a, **k))
+
+    def restore(self):
+        setattr(self.owner, self.name, self.original)
+
+
+def splat_rows(splats, optimizer, rows):
+    """Copies of the float fields and their Adam moments at ``rows``."""
+    out = []
+    for f in gs_splats.FLOAT_FIELDS:
+        p = getattr(splats, f)
+        st = optimizer.state.get(p, {})
+        out += [p[rows].clone()] + [st[m][rows].clone() for m in
+                                    gs_optim.MOMENTS if m in st]
+    return out
+
+
+def decompress_within_bounds(cdir, splats):
+    """The compressed model holds the alive rows within the quantisation
+    bounds of ``tests/test_gs_train.py::test_png_compression_roundtrip``;
+    returns the largest error over its bound."""
+    back = gs_compression.decompress_splats(cdir)
+    alive = splats.alive.cpu().numpy()
+    worst = 0.0
+    for f in gs_splats.FLOAT_FIELDS:
+        a = getattr(splats, f).detach().cpu().numpy()[alive]
+        a = a.reshape(len(a), -1).astype(np.float64)
+        b = back[f].reshape(len(a), -1)
+        span = np.maximum(a.max(0) - a.min(0), 1e-9)
+        bound = (span / (2 ** 16 - 1) * 0.51 + 1e-7 if f == "means"
+                 else span / 255 * 0.51 + 1e-6)
+        worst = max(worst, float((np.abs(a - b) / bound).max()))
+    return worst
+
+
+def lpips_card_vs_cpu(weights, runner):
+    """LPIPS of the first val view's render and photo on the card and on
+    the CPU: ([card value, CPU value], relative difference)."""
+    v = runner.valset[0]
+    H, W = v["image"].shape[:2]
+    with torch.no_grad():
+        out = runner._render(runner.splats, runner._tensor(v["camtoworld"]),
+                             runner._tensor(v["K"]), W, H,
+                             runner.cfg.sh_degree, v["image_id"], None,
+                             torch.zeros(3, device=runner.device))
+    pair = [torch.clamp(out.rgb, 0, 1), runner._tensor(v["image"])]
+    vals = []
+    for dev in (runner.device, torch.device("cpu")):
+        net = convert.lpips_from_numpy(weights, dev)
+        with torch.no_grad(), full_f32():
+            vals.append(float(net(pair[0].to(dev), pair[1].to(dev))))
+    return vals, abs(vals[0] - vals[1]) / abs(vals[1])
+
+
+def train_views_loss(runner, views):
+    """The training objective at the current parameters, averaged over
+    ``views`` (every train view, prepared), without an update: (loss, K2
+    launches it made)."""
+    k2 = k23.composite_fwd.launches
+    with torch.no_grad():
+        loss = float(np.mean([
+            float(runner._loss(runner.splats, v, None,
+                               runner.cfg.sh_degree)[0]) for v in views]))
+    return loss, k23.composite_fwd.launches - k2
+
+
+def run_gs_opts_a(device, root, weights_path, profile=False):
+    """Run A: every option but MCMC at the main shape, through ``Runner``
+    (compression and LPIPS at the step-40 eval, a checkpoint there), then
+    the PLY from that checkpoint as ``cli.gs --export_ply`` writes it and
+    an ellipse trajectory.  The training objective, averaged over every
+    train view, must fall after the opacity reset (from step 25 to 40).
+    Before the reset it need not fall: the bilateral grids train at their
+    full lr from the first step (JAX has no warm-up; gsplat's reference
+    warms up over 1,000 steps) and with the pose noise that outweighs 25
+    steps of fitting; at step 24 it must stay within
+    ``GS_OPTS_PRE_RESET_RISE`` of the start (``gs_opts_card_vs_cpu`` holds
+    the same options' steps on the card to the CPU's).  One view a step
+    makes the per-step loss too noisy to show either.  Spies keep one
+    depth-loss step's K3 inputs (at its launcher), one selective step's
+    unseen rows, the eval's and compression's times, and those losses
+    (their time taken out of their steps'); they count no launch."""
+    cfg = gs_main_cfg(root, "results_opts", pose_opt=True, app_opt=True,
+                      use_bilateral_grid=True, depth_loss=True,
+                      visible_adam=True, compression="png", pose_noise=0.01,
+                      eval_steps=(GS_STEPS,), save_steps=(GS_STEPS,))
+    t0 = time.perf_counter()
+    runner = Runner(cfg, log=lambda *a: None, device=device)
+    setup_s = time.perf_counter() - t0
+    gs_refine_schedule(runner)
+    views = [runner._prepare(runner.trainset[i])
+             for i in range(len(runner.trainset))]
+    depth_points = [int(v["points_valid"].sum()) for v in views]
+    rec, kept = {}, {}
+    all_views, probe_k2, probe_s = {}, [0], {}
+
+    def probe_losses(original, step, *a):
+        original(step, *a)
+        if step in (GS_RESET_EVERY - 1, GS_RESET_EVERY):
+            t = time.perf_counter()
+            all_views[step], n = train_views_loss(runner, views)
+            probe_k2[0] += n
+            probe_s[step] = time.perf_counter() - t
+
+    def keep_k3_inputs(original, attrs, logt, gout, ntx):
+        if "k3" not in kept:
+            kept["k3"] = (attrs.clone(), logt.clone(), gout.clone(), ntx)
+        return original(attrs, logt, gout, ntx)
+
+    def hold_unseen_rows(original, optimizer, visible):
+        if len(kept.setdefault("selective_calls", [])) != 3:
+            kept["selective_calls"].append(None)
+            return original(optimizer, visible)
+        hidden = (~visible).nonzero()[:, 0]
+        before = splat_rows(runner.splats, optimizer, hidden)
+        original(optimizer, visible)
+        after = splat_rows(runner.splats, optimizer, hidden)
+        kept["selective_calls"].append(dict(
+            unseen=len(hidden), seen=int(visible.sum()),
+            bit_identical=all(torch.equal(a, b)
+                              for a, b in zip(before, after))))
+
+    def timed(key):
+        def wrap(original, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            counts = (k23.composite_fwd.launches, k23.composite_bwd.launches)
+            out = original(*a, **k)
+            torch.cuda.synchronize()
+            rec[key + "_s"] = time.perf_counter() - t
+            rec[key + "_k23_launches"] = [
+                k23.composite_fwd.launches - counts[0],
+                k23.composite_bwd.launches - counts[1]]
+            return out
+        return wrap
+
+    all_views["start"] = train_views_loss(runner, views)[0]
+    spies = [Spy(k23, "_launch_bwd", keep_k3_inputs),
+             Spy(runner, "_default_strategy", probe_losses),
+             Spy(gs_optim, "selective_step", hold_unseen_rows),
+             Spy(runner, "eval", timed("eval")),
+             Spy(gs_compression, "compress_splats", timed("compress"))]
+    old_env = os.environ.get("INSTANTSFM_LPIPS_WEIGHTS")
+    os.environ["INSTANTSFM_LPIPS_WEIGHTS"] = weights_path
+    try:
+        torch.cuda.synchronize()
+        k1.schur_wchain.launches = 0
+        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+        t0 = time.perf_counter()
+        losses = runner.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+        k1n = k1.schur_wchain.launches
+        all_views["end"] = train_views_loss(runner, views)[0]
+    finally:
+        for spy in spies[::-1]:
+            spy.restore()
+        if old_env is None:
+            os.environ.pop("INSTANTSFM_LPIPS_WEIGHTS")
+        else:
+            os.environ["INSTANTSFM_LPIPS_WEIGHTS"] = old_env
+
+    # K3 on the depth-loss step's gout against its plain version
+    attrs, logt, gout, ntx = kept["k3"]
+    got = k23.composite_bwd(attrs, logt, gout, ntx)
+    want = k23.composite_bwd_reference(attrs, logt, gout, ntx)
+    torch.cuda.synchronize()
+    k3_err = [_assert_rel(f"K3 depth-loss gout column {c}", got[..., c],
+                          want[..., c], 1e-4) for c in range(10)]
+    gout_rows = {name: float(gout[:, r].abs().max())
+                 for name, r in (("rgb", slice(0, 3)), ("alpha", 3),
+                                 ("depth", 4))}
+
+    with open(os.path.join(cfg.result_dir, "stats",
+                           f"val_{GS_STEPS}.json")) as f:
+        val = json.load(f)
+    lpips_vals, lpips_rel = lpips_card_vs_cpu(
+        gs_lpips.load_weights(weights_path), runner)
+    cdir = os.path.join(cfg.result_dir, "compression", f"step{GS_STEPS}")
+    comp_over_bound = decompress_within_bounds(cdir, runner.splats)
+    ckpt = os.path.join(cfg.result_dir, "ckpts", f"ckpt_{GS_STEPS}.npz")
+    t0 = time.perf_counter()
+    ply = gs_ply.export_ply_from_checkpoint(
+        ckpt, os.path.join(cfg.result_dir, "point_cloud.ply"))
+    ply_s = time.perf_counter() - t0
+    with open(ply, "rb") as f:
+        header = f.read(200).split(b"end_header")[0].decode()
+    ply_vertices = int(header.split("element vertex ")[1].split()[0])
+    torch.cuda.synchronize()
+    k2_before = k23.composite_fwd.launches
+    t0 = time.perf_counter()
+    traj = runner.render_traj("ellipse", n_frames=GS_OPTS_TRAJ_FRAMES)
+    torch.cuda.synchronize()
+    traj_s = time.perf_counter() - t0
+    traj_k2 = k23.composite_fwd.launches - k2_before
+    if traj.endswith(".npz"):
+        traj_shape = list(np.load(traj)["frames"].shape)
+    else:
+        traj_shape = [GS_OPTS_TRAJ_FRAMES] if os.path.getsize(traj) else []
+
+    if profile:
+        profile_gs_step(runner, "GS_OPTS_PROFILE", "gs_opts_step_trace.json")
+    eval_k2 = rec["eval_k23_launches"][0]
+    step_ms = [(t - probe_s.get(i, 0.0)) * 1e3
+               for i, t in enumerate(runner.step_s)]
+    selective = [c for c in kept["selective_calls"] if c]
+    alive = int(runner.splats.alive.sum())
+    rec.update(
+        setup_s=setup_s, train_s=train_s, first_step_ms=step_ms[0],
+        median_later_step_ms=float(np.median(step_ms[1:])), step_ms=step_ms,
+        losses=losses, train_views_loss=all_views,
+        depth_points_per_view=[min(depth_points), max(depth_points)],
+        k2_launches=k2n, k3_launches=k3n,
+        k2_train=k2n - eval_k2 - probe_k2[0], k2_loss_probes=probe_k2[0],
+        k1_launches=k1n, val=val, lpips_card_cpu=lpips_vals,
+        lpips_card_vs_cpu_rel=lpips_rel, k3_depth_loss_gout_max=gout_rows,
+        k3_depth_loss_max_abs_err=max(e for e, _, _ in k3_err),
+        k3_depth_loss_max_rel_err=max(r for _, _, r in k3_err),
+        selective=selective,
+        pose_delta_max=float(
+            runner.aux["pose"].pose_deltas.detach().abs().max()),
+        compression_over_bound=comp_over_bound, alive=alive,
+        ply_vertices=ply_vertices, ply_s=ply_s, traj=os.path.basename(traj),
+        traj_shape=traj_shape, traj_frames_k2=traj_k2,
+        traj_ms_per_frame=traj_s * 1e3 / GS_OPTS_TRAJ_FRAMES)
+    steps = GS_STEPS * cfg.batch_size
+    reset = GS_RESET_EVERY
+    checks = {
+        "losses finite": bool(np.all(np.isfinite(losses))),
+        "train views' loss within the bar of the start before the reset":
+            all_views[reset - 1]
+            <= (1 + GS_OPTS_PRE_RESET_RISE) * all_views["start"],
+        "train views' loss falls after the reset":
+            all_views["end"] < all_views[reset],
+        "every training view has SfM points": min(depth_points) > 0,
+        "K2 and K3 launched once per view per step":
+            rec["k2_train"] == k3n == steps,
+        "K2 once per val view in eval": eval_k2 == len(runner.valset),
+        "the depth-loss gout has nonzero alpha and depth rows":
+            gout_rows["alpha"] > 0 and gout_rows["depth"] > 0,
+        "selective Adam keeps unseen rows bit for bit":
+            len(selective) == 1 and selective[0]["bit_identical"]
+            and selective[0]["unseen"] > 0,
+        "pose deltas moved": rec["pose_delta_max"] > 0,
+        "compressed model within its quantisation bounds":
+            comp_over_bound <= 1.0,
+        "val_40.json holds lpips": math.isfinite(val.get("lpips", math.nan)),
+        "LPIPS card matches CPU": lpips_rel <= GS_OPTS_LPIPS_TOL,
+        "PLY vertices = alive": ply_vertices == alive,
+        "trajectory frames written":
+            traj_k2 == GS_OPTS_TRAJ_FRAMES
+            and traj_shape[:1] == [GS_OPTS_TRAJ_FRAMES],
+    }
+    return rec, checks
+
+
+def run_gs_opts_b(device, root):
+    """Run B: ``strategy="mcmc"`` (with the ``mcmc`` preset's opacity and
+    scale regularisers) for 40 steps, relocation at steps 10, 20, 30.  A
+    spy holds each relocation: its dead rows move, the others keep their
+    means.  The rows outside the pool never move; one relocation of the
+    final state on the card matches the CPU fed the same draws."""
+    cfg = gs_main_cfg(root, "results_mcmc", strategy="mcmc",
+                      opacity_reg=0.01, scale_reg=0.01)
+    t0 = time.perf_counter()
+    runner = Runner(cfg, log=lambda *a: None, device=device)
+    setup_s = time.perf_counter() - t0
+    runner.mcmc_cfg = gs_strategy.MCMCConfig(
+        refine_start_iter=10, refine_every=10,
+        min_opacity=GS_MCMC_MIN_OPACITY)
+    outside = ~runner.splats.alive
+    means0 = runner.splats.means.detach()[outside].clone()
+    moves = []
+
+    def hold_relocation(original, splats, optimizer, min_opacity, *a, **k):
+        dead = splats.alive & (torch.sigmoid(splats.opacities) < min_opacity)
+        before = splats.means.detach().clone()
+        n = original(splats, optimizer, min_opacity, *a, **k)
+        after = splats.means.detach()
+        moves.append(dict(
+            dead=int(dead.sum()), returned=n,
+            dead_rows_moved=bool((after[dead] != before[dead]).any(1).all()),
+            others_kept=bool(torch.equal(after[~dead], before[~dead]))))
+        return n
+
+    spy = Spy(gs_strategy, "mcmc_relocate", hold_relocation)
+    try:
+        torch.cuda.synchronize()
+        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+        t0 = time.perf_counter()
+        losses = runner.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+    finally:
+        spy.restore()
+    outside_kept = torch.equal(runner.splats.means.detach()[outside], means0)
+
+    # one relocation of the final state on the card and on the CPU, with
+    # the same draws
+    sp = runner.splats
+    opac = torch.sigmoid(sp.opacities.detach())
+    src = gs_strategy.choice(
+        torch.where(sp.alive & (opac >= GS_MCMC_MIN_OPACITY), opac,
+                    torch.zeros_like(opac)), len(opac),
+        torch.Generator(device=device).manual_seed(SEED))
+    state = copy.deepcopy(runner.optimizer.state_dict())
+    results = []
+    for dev in (device, torch.device("cpu")):
+        twin = gs_splats.Splats(**{f: getattr(sp, f).detach().to(dev).clone()
+                                   for f in gs_splats.FIELDS})
+        opt = gs_splats.make_optimizer(gs_splats.float_params(twin),
+                                       runner.scene_scale)
+        opt.load_state_dict(copy.deepcopy(state))
+        n = gs_strategy.mcmc_relocate(twin, opt, GS_MCMC_MIN_OPACITY,
+                                      src=src.to(dev))
+        results.append((n, splat_rows(twin, opt, slice(None))))
+    relocate_equal = results[0][0] == results[1][0] and all(
+        torch.equal(a.cpu(), b) for a, b in zip(results[0][1], results[1][1]))
+
+    step_ms = [t * 1e3 for t in runner.step_s]
+    rec = dict(setup_s=setup_s, train_s=train_s,
+               median_later_step_ms=float(np.median(step_ms[1:])),
+               losses=losses, relocations=runner.relocations, moves=moves,
+               outside_pool_kept=outside_kept, k2_launches=k2n,
+               k3_launches=k3n, relocate_card_vs_cpu_rows=results[0][0],
+               relocate_card_equals_cpu=relocate_equal)
+    checks = {
+        "MCMC losses finite": bool(np.all(np.isfinite(losses))),
+        "MCMC: no refine": not runner.refines,
+        "relocation at steps 10, 20, 30":
+            [r["step"] for r in runner.relocations] == [10, 20, 30],
+        "each relocation moves its dead rows, and only them":
+            len(moves) == 3 and all(m["dead"] > 0 and m["dead_rows_moved"]
+                                    and m["others_kept"] for m in moves),
+        "noise moves alive rows only": outside_kept,
+        "MCMC K2 and K3 once per view per step": k2n == k3n == GS_STEPS,
+        "relocation on the card matches the CPU": relocate_equal,
+    }
+    return rec, checks
+
+
+def run_gs_opts(device, root, gs_rec, profile=False):
+    """The 3DGS trainer's options on the main shape's scene (``root``, as
+    ``run_gs`` wrote it): run A, run B and ``gs_opts_card_vs_cpu`` on a
+    small scene beside it; one ``GS_OPTS`` line."""
+    weights_path = os.path.join(root, "lpips_alex.npz")
+    np.savez(weights_path, **gs_lpips.random_weights(
+        torch.Generator().manual_seed(SEED)))
+    a, checks_a = run_gs_opts_a(device, root, weights_path, profile)
+    b, checks_b = run_gs_opts_b(device, root)
+    small, checks_small = gs_opts_card_vs_cpu(os.path.join(root, "small"))
+    rec = dict(
+        setup_s=a["setup_s"],
+        median_step_ms=a["median_later_step_ms"],
+        gs_median_step_ms=gs_rec["median_later_step_ms"],
+        eval_with_lpips_s=a["eval_s"], compress_s=a["compress_s"],
+        ply_s=a["ply_s"], traj_ms_per_frame=a["traj_ms_per_frame"],
+        mcmc_median_step_ms=b["median_later_step_ms"], run_a=a, run_b=b,
+        small_card_vs_cpu=small)
+    log("GS_OPTS " + json.dumps(rec))
+    failed = [k for k, ok in {**checks_a, **checks_b, **checks_small}.items()
+              if not ok]
+    if failed:
+        raise AssertionError(f"3DGS options path failed: {failed}")
+    return rec
 
 
 def profile_ba_step(device):
@@ -2180,8 +2665,11 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
                                      for c in f32_cases))
 
 
-def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec):
+def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
+    extra = {} if which == 0 else dict(
+        max_rel_err_depth_loss=opts_rec["run_a"]["k3_depth_loss_max_rel_err"],
+        max_abs_err_depth_loss=opts_rec["run_a"]["k3_depth_loss_max_abs_err"])
     return kernel_entry(
         ("composite_fwd", "composite_bwd")[which],
         "instantsfm_tpu_torch/csrc/composite_tiles.cu",
@@ -2198,15 +2686,19 @@ def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec):
         max_rel_err_hand_built=max(c[which]["max_rel_err"]
                                    for c in hand_cases.values()),
         launches_pixels_tail=pix_rec[("gs_k2_launches",
-                                      "gs_k3_launches")[which]])
+                                      "gs_k3_launches")[which]],
+        launches_gs_opts=opts_rec["run_a"][("k2_train", "k3_launches")[which]],
+        launches_gs_mcmc=opts_rec["run_b"][("k2_launches",
+                                            "k3_launches")[which]],
+        **extra)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one BA LM step, the mapper's "
-                         "relative-pose stage and one 3DGS training step "
-                         "(torch.profiler)")
+                         "relative-pose stage and one 3DGS training step, "
+                         "with and without the options (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2253,11 +2745,13 @@ def main(argv=None):
     run_learned(device)
     if args.profile:
         profile_ba_step(device)
-    gs_rec, tiles = run_gs(device, profile=args.profile)
+    with tempfile.TemporaryDirectory(prefix="gs_smoke_") as gs_root:
+        gs_rec, tiles = run_gs(device, gs_root, profile=args.profile)
+        opts_rec = run_gs_opts(device, gs_root, gs_rec, args.profile)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec)] + [
-        k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec)
+        k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec)
         for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

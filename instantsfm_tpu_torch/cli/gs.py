@@ -5,8 +5,11 @@ Counterpart of ``instantsfm_tpu/cli/gs.py``:
     python -m instantsfm_tpu_torch.cli.gs --data_path SCENE [--device cuda|cpu]
 
 SCENE holds ``images/`` and ``sparse/0``.  Runs train -> eval -> checkpoint
-(or eval only from ``--ckpt``).  Options the port does not have yet are
-accepted and raise ``NotImplementedError`` naming their ROADMAP item.
+(or eval only from ``--ckpt``), then ``--export_ply`` writes
+``point_cloud.ply`` from the final checkpoint and ``--render_traj KIND``
+renders a trajectory (``videos/traj_KIND.mp4``, or ``.npz`` of the frames
+where imageio's mp4 writer is not installed).  ``--distributed`` is not
+ported and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import argparse
 import os
 import sys
 
-from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner, not_ported
+from instantsfm_tpu_torch.gs.ply import export_ply_from_checkpoint
+from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
 
 
 def main(argv=None):
@@ -48,10 +52,6 @@ def main(argv=None):
     parser.add_argument("--distributed", action="store_true",
                         help="gaussian-sharded rendering over all devices")
     args = parser.parse_args(argv)
-    if args.export_ply:
-        raise not_ported("--export_ply", "gs/ply.py")
-    if args.render_traj:
-        raise not_ported("--render_traj", "gs/traj.py")
 
     cfg = GSConfig(
         data_dir=args.data_path,
@@ -75,7 +75,13 @@ def main(argv=None):
     else:
         runner.train()
         runner.eval(runner.cfg.max_steps)
-        runner.save_checkpoint(runner.cfg.max_steps)
+        ckpt = runner.save_checkpoint(runner.cfg.max_steps)
+        if args.export_ply:
+            out = os.path.join(cfg.result_dir, "point_cloud.ply")
+            export_ply_from_checkpoint(ckpt, out)
+            print(f"PLY exported to {out}")
+    if args.render_traj:
+        runner.render_traj(args.render_traj)
     return 0
 
 

@@ -9,7 +9,10 @@ NamedTuples after ``np.asarray`` on every leaf) into this port's tensors on
 ``lightglue_from_numpy`` and ``dedode_from_numpy`` build the learned
 front-ends' modules from a weight dict in the npz layout both packages
 share (JAX's ``random_weights`` after ``np.asarray``, or ``load_weights``
-of a converted checkpoint): HWIO convolutions become OIHW.
+of a converted checkpoint): HWIO convolutions become OIHW;
+``lpips_from_numpy`` does so for the LPIPS AlexNet.  ``gs_aux_from_numpy``
+builds the 3DGS trainer's pose, appearance and bilateral-grid modules from
+the JAX ``Runner.aux_params`` dict.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.features import dedode, disk, lightglue, superpoint
+from instantsfm_tpu_torch.gs import bilateral, camera_opt, lpips
 from instantsfm_tpu_torch.gs.splats import FIELDS, Splats
 from instantsfm_tpu_torch.solve.block_lm import Observations, Params
 from instantsfm_tpu_torch.utils.device import resolve_device
@@ -143,3 +147,50 @@ def dedode_from_numpy(weights, device="cuda", dtype=torch.float32):
     its npz name)."""
     return dedode.DeDoDe(_weights(weights, device, dtype)).eval() \
         .requires_grad_(False)
+
+
+def lpips_from_numpy(weights, device="cuda"):
+    """LPIPS npz dict (``conv{i}_w`` HWIO, ``conv{i}_b``, ``lin{i}_w``) ->
+    ``gs.lpips.LPIPS`` in float32."""
+    w = _weights(weights, device, torch.float32)
+    state = {}
+    for k, v in w.items():
+        stem, kind = k.rsplit("_", 1)
+        state[stem if stem.startswith("lin")
+              else f"{stem}.{'weight' if kind == 'w' else 'bias'}"] = v
+    return _load(lpips.LPIPS().to(w["conv0_w"].device), state)
+
+
+def gs_aux_from_numpy(aux_np, device="cuda") -> dict:
+    """The JAX trainer's ``aux_params`` ({"pose": {"pose_deltas"}, "app":
+    {"embeds", "w1", "b1", "w2", "b2"}, "bilgrid": {"grids"}}, any subset,
+    numpy leaves) -> {name: the port's module} on ``device`` in float32,
+    trainable: ``CameraOptModule``, ``AppearanceOptModule`` and
+    ``BilateralGrid``.  Load one into a ``Runner`` with
+    ``runner.aux[name].load_state_dict(module.state_dict())``, which keeps
+    the runner's optimizer on its parameters."""
+    dev = resolve_device(device)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    out = {}
+    if "pose" in aux_np:
+        d = f32(aux_np["pose"]["pose_deltas"])
+        out["pose"] = camera_opt.CameraOptModule(d.shape[0], device=dev)
+        out["pose"].load_state_dict({"pose_deltas": d})
+    if "app" in aux_np:
+        a = {k: f32(v) for k, v in aux_np["app"].items()}
+        n_imgs, embed_dim = a["embeds"].shape
+        in_dim, width = a["w1"].shape
+        basis = in_dim - embed_dim - 32          # default feature_dim = 32
+        m = camera_opt.AppearanceOptModule(
+            n_imgs, embed_dim=embed_dim, sh_degree=round(basis ** 0.5) - 1,
+            mlp_width=width, generator=torch.Generator(), device=dev)
+        m.load_state_dict(a)
+        out["app"] = m
+    if "bilgrid" in aux_np:
+        g = f32(aux_np["bilgrid"]["grids"])
+        n_imgs, gh, gw, gg, _ = g.shape
+        m = bilateral.BilateralGrid(n_imgs, grid_w=gw, grid_h=gh, grid_g=gg,
+                                    device=dev)
+        m.load_state_dict({"grids": g})
+        out["bilgrid"] = m
+    return out

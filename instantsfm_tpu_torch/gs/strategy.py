@@ -1,11 +1,14 @@
-"""Densification with a fixed capacity (gsplat's DefaultStrategy).
+"""Densification with a fixed capacity (gsplat's DefaultStrategy and a
+simplified MCMCStrategy).
 
-Counterpart of the DefaultStrategy half of ``instantsfm_tpu/gs/strategy.py``:
-splats live in a fixed pool with an ``alive`` mask; duplication and
-splitting write into dead slots (with their Adam moments zeroed) and
-pruning clears the mask.  The parameter tensors are the optimizer's, so
-``refine`` and ``reset_opacity`` update them in place.  The MCMC strategy
-(``mcmc_relocate``, ``mcmc_noise``) is not ported yet.
+Counterpart of ``instantsfm_tpu/gs/strategy.py``: splats live in a fixed
+pool with an ``alive`` mask; duplication and splitting write into dead
+slots (with their Adam moments zeroed) and pruning clears the mask.  The
+MCMC half relocates low-opacity gaussians onto high-opacity ones and adds
+SGLD-style position noise.  The parameter tensors are the optimizer's, so
+``refine``, ``reset_opacity``, ``mcmc_relocate`` and ``mcmc_noise`` update
+them in place.  Random draws come from an explicit ``torch.Generator``, or
+are given (tests feed JAX's draws).
 """
 
 from __future__ import annotations
@@ -136,4 +139,72 @@ def reset_opacity(splats: Splats, optimizer, value: float = 0.01) -> Splats:
     new_logit = math.log(value / (1 - value))
     splats.opacities.clamp_(max=new_logit)
     zero_moments(optimizer, slice(None))
+    return splats
+
+
+class MCMCConfig(NamedTuple):
+    cap_max: int = 1_000_000
+    noise_lr: float = 5e5
+    refine_every: int = 100
+    refine_start_iter: int = 500
+    refine_stop_iter: int = 25000
+    min_opacity: float = 0.005
+
+
+def choice(probs, n: int, generator=None, uniforms=None):
+    """``n`` indices drawn with replacement by ``probs`` [N] (not
+    normalised), by inverse CDF as ``jax.random.choice(p=...)`` draws them:
+    the first index whose cumulative sum reaches total * (1 - u).  With
+    all-zero ``probs`` every draw is index 0, as in JAX."""
+    if uniforms is None:
+        uniforms = torch.rand(n, generator=generator, device=probs.device,
+                              dtype=probs.dtype)
+    cum = torch.cumsum(probs, 0)
+    return torch.searchsorted(cum, cum[-1] * (1 - uniforms)).clamp_(
+        max=len(probs) - 1)
+
+
+@torch.no_grad()
+def mcmc_relocate(splats: Splats, optimizer, min_opacity: float = 0.005,
+                  generator=None, src=None):
+    """Simplified MCMCStrategy relocation: alive gaussians whose opacity
+    fell below ``min_opacity`` ("dead") take every field of a gaussian
+    drawn with probability proportional to its opacity among the others
+    (``src`` [N] indices, drawn from ``generator`` when not given); the
+    dead rows' Adam moments are zeroed.  Returns the number of dead rows."""
+    N = splats.alive.shape[0]
+    opac = torch.sigmoid(splats.opacities)
+    dead = splats.alive & (opac < min_opacity)
+    probs = torch.where(splats.alive & ~dead, opac, torch.zeros_like(opac))
+    probs = probs / torch.clamp(probs.sum(), min=1e-12)
+    if src is None:
+        src = choice(probs, N, generator)
+    src = src.to(device=dead.device, dtype=torch.int64)
+    for f in FIELDS:
+        if f != "alive":
+            a = getattr(splats, f)
+            col = dead.reshape((-1,) + (1,) * (a.dim() - 1))
+            a.copy_(torch.where(col, torch.index_select(a, 0, src), a))
+    zero_moments(optimizer, dead)
+    return int(dead.sum())
+
+
+@torch.no_grad()
+def mcmc_noise(splats: Splats, lr_means: float, noise_lr: float = 5e5,
+               generator=None, noise=None) -> Splats:
+    """Per-step SGLD-style position noise, shaped by each gaussian's
+    covariance and damped for opaque ones; alive rows only.  ``noise``
+    [N, 3] standard normals, drawn from ``generator`` when not given."""
+    opac = torch.sigmoid(splats.opacities)
+    sigmoid_term = 1.0 / (1.0 + torch.exp(100.0 * (opac - 0.995)))
+    if noise is None:
+        noise = torch.randn(splats.means.shape, generator=generator,
+                            device=splats.means.device,
+                            dtype=splats.means.dtype)
+    noise = noise.to(device=splats.means.device, dtype=splats.means.dtype)
+    R = lie.quat_to_matrix(lie.quat_normalize(splats.quats))
+    shaped = torch.einsum("nij,nj->ni", R, noise * torch.exp(splats.scales))
+    step = shaped * (sigmoid_term * noise_lr * lr_means)[:, None]
+    splats.means.add_(torch.where(splats.alive[:, None], step,
+                                  torch.zeros_like(step)))
     return splats

@@ -2,13 +2,18 @@
 
 Counterpart of ``instantsfm_tpu/gs/trainer.py``.  Losses, cadences and
 knobs mirror the reference defaults: loss = (1-λ)·L1 + λ·(1-SSIM) with
-λ = 0.2, optional opacity/scale regularizers; densification by the
-fixed-capacity DefaultStrategy; per-group Adam; PSNR/SSIM eval at step
-milestones; npz checkpoints.  A batch of views is a loop over views whose
-losses are averaged before one backward pass.
+λ = 0.2, optional disparity-L1 depth supervision from SfM points, optional
+opacity/scale regularizers, bilateral-grid TV; densification by the
+fixed-capacity DefaultStrategy or the MCMC relocation; per-group Adam,
+optionally selective (``visible_adam``); pose and appearance modules with
+their own Adams; PSNR/SSIM (and LPIPS where its weights are present) eval
+at step milestones, PNG compression there; npz checkpoints; trajectory
+renders.  A batch of views is a loop over views whose losses are averaged
+before one backward pass.
 
-Options the port does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item (queue 1 item 8); see ``NOT_PORTED``.
+``distributed`` (gaussian-sharded rendering over several devices) is not
+ported: it raises ``NotImplementedError`` naming its ROADMAP item (queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from instantsfm_tpu_torch.gs import (data as data_mod, rasterize as raster_mod,
+from instantsfm_tpu_torch.gs import (bilateral, camera_opt, data as data_mod,
+                                     optim as optim_mod,
+                                     rasterize as raster_mod,
                                      splats as splats_mod, ssim as ssim_mod,
                                      strategy as strat_mod)
 from instantsfm_tpu_torch.gs.splats import FIELDS, FLOAT_FIELDS
-from instantsfm_tpu_torch.utils.device import resolve_device
+from instantsfm_tpu_torch.utils.device import full_f32, resolve_device
 from instantsfm_tpu_torch.utils.scalars import ScalarLogger
 
 
@@ -79,7 +86,7 @@ class GSConfig:
     tile_capacity: int = 512
     tiles_per_gauss: int = 16
     random_bkgd: bool = False
-    lpips_net: str = "alex"            # parity field; LPIPS is not ported
+    lpips_net: str = "alex"            # LPIPS where its weights are present
     distributed: bool = False          # gaussian-sharded multi-device rendering
     tb_every: int = 100                # scalar-log cadence (ref tb_every)
     tb_save_image: bool = False        # also dump train renders
@@ -87,20 +94,28 @@ class GSConfig:
     compression: Optional[str] = None  # "png" -> compress at eval steps
 
 
-# option -> the JAX module it needs, still to port (ROADMAP queue 1 item 8)
-NOT_PORTED = {
-    "pose_opt": "gs/camera_opt.py", "app_opt": "gs/camera_opt.py",
-    "use_bilateral_grid": "gs/bilateral.py",
-    "depth_loss": "the depth loss of gs/trainer.py",
-    "distributed": "gs/distributed.py", "visible_adam": "gs/optim.py",
-    "compression": "gs/compression.py",
-}
+# option -> the JAX module it needs, still to port (ROADMAP queue 1 item 6)
+NOT_PORTED = {"distributed": "gs/distributed.py"}
+MAX_DEPTH_PTS = 2048       # depth-supervision points per view, padded
 
 
 def not_ported(what: str, module: str):
     return NotImplementedError(
         f"{what} is not ported to instantsfm_tpu_torch yet: it needs "
-        f"{module} (ROADMAP.md queue 1 item 8)")
+        f"{module} (ROADMAP.md queue 1 item 6)")
+
+
+def _write_video(path_stem: str, frames, fps: int) -> str:
+    """An mp4 where imageio and its ffmpeg plugin import, else an npz of
+    the frames [F, H, W, 3] uint8; returns the path written."""
+    try:
+        import imageio.v2 as iio
+        import imageio_ffmpeg  # noqa: F401  (imageio's mp4 writer)
+    except ImportError:
+        np.savez(path_stem + ".npz", frames=np.stack(frames))
+        return path_stem + ".npz"
+    iio.mimwrite(path_stem + ".mp4", frames, fps=fps)
+    return path_stem + ".mp4"
 
 
 class Runner:
@@ -108,11 +123,10 @@ class Runner:
         for name, module in NOT_PORTED.items():
             if getattr(cfg, name):
                 raise not_ported(f"GSConfig.{name}", module)
-        if cfg.strategy == "mcmc":
-            raise not_ported("GSConfig.strategy='mcmc'",
-                             "the MCMC half of gs/strategy.py")
-        if cfg.strategy != "default":
+        if cfg.strategy not in ("default", "mcmc"):
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
+        if cfg.compression not in (None, "png"):
+            raise ValueError(f"unknown compression {cfg.compression!r}")
         if cfg.steps_scaler != 1.0:
             # reference steps_scaler: scale every schedule milestone
             sc = cfg.steps_scaler
@@ -130,7 +144,8 @@ class Runner:
                                       test_every=cfg.test_every,
                                       normalize=cfg.normalize_world_space,
                                       image_folder_name=cfg.image_folder_name)
-        self.trainset = data_mod.Dataset(self.parser, "train")
+        self.trainset = data_mod.Dataset(self.parser, "train",
+                                         load_depths=cfg.depth_loss)
         self.valset = data_mod.Dataset(self.parser, "val")
         self.scene_scale = self.parser.scene_scale * cfg.global_scale
 
@@ -170,9 +185,36 @@ class Runner:
         self.n_updates = 0
         self.strategy_state = strat_mod.init_state(capacity, self.device)
         self.strategy_cfg = strat_mod.StrategyConfig()
+        self.mcmc_cfg = strat_mod.MCMCConfig()
         self.generator = torch.Generator(device=self.device).manual_seed(42)
+
+        # per-image modules, each with its own Adam (optax's
+        # chain(add_decayed_weights(reg), adam(lr)) is Adam's weight_decay)
+        n_imgs = len(self.parser.image_names)
+        self.aux, self.aux_opt = {}, {}
+        if cfg.pose_opt:
+            self.aux["pose"] = camera_opt.CameraOptModule(n_imgs,
+                                                          device=self.device)
+            self.aux_opt["pose"] = torch.optim.Adam(
+                self.aux["pose"].parameters(), lr=cfg.pose_opt_lr,
+                weight_decay=cfg.pose_opt_reg)
+        if cfg.app_opt:
+            self.aux["app"] = camera_opt.AppearanceOptModule(
+                n_imgs, embed_dim=cfg.app_embed_dim, sh_degree=cfg.sh_degree,
+                generator=torch.Generator().manual_seed(0), device=self.device)
+            self.aux_opt["app"] = torch.optim.Adam(
+                self.aux["app"].parameters(), lr=cfg.app_opt_lr,
+                weight_decay=cfg.app_opt_reg)
+        if cfg.use_bilateral_grid:
+            gw, gh, gg = cfg.bilateral_grid_shape
+            self.aux["bilgrid"] = bilateral.BilateralGrid(
+                n_imgs, grid_w=gw, grid_h=gh, grid_g=gg, device=self.device)
+            self.aux_opt["bilgrid"] = torch.optim.Adam(
+                self.aux["bilgrid"].parameters(), lr=cfg.bilateral_grid_lr)
+
         self.stats = {}
         self.refines = []       # one record per refine: step, counts
+        self.relocations = []   # one record per MCMC relocation: step, moved
         self.step_s = []        # host seconds of each step after data loading
         self.writer = ScalarLogger(os.path.join(cfg.result_dir, "tb"))
 
@@ -182,8 +224,10 @@ class Runner:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     def _render(self, splats, camtoworld, K, width, height, sh_degree,
-                offset, bkgd):
+                image_id, offset, bkgd):
         cfg = self.cfg
+        if "pose" in self.aux:
+            camtoworld = self.aux["pose"](camtoworld, image_id)
         viewmat = torch.linalg.inv(camtoworld)
         opac = torch.sigmoid(splats.opacities) * splats.alive
         return raster_mod.rasterize(
@@ -202,17 +246,26 @@ class Runner:
         else:
             bkgd = torch.zeros(3, device=self.device)
         out = self._render(splats, view["camtoworld"], view["K"], W, H,
-                           sh_degree, offset, bkgd)
+                           sh_degree, view["image_id"], offset, bkgd)
+        rgb = out.rgb
+        if "bilgrid" in self.aux:
+            rgb = self.aux["bilgrid"](view["image_id"], rgb)
         gt = view["image"]
-        l1 = torch.mean(torch.abs(out.rgb - gt))
-        s = ssim_mod.ssim(out.rgb, gt)
+        l1 = torch.mean(torch.abs(rgb - gt))
+        s = ssim_mod.ssim(rgb, gt)
         loss = (1 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * (1 - s)
+        if cfg.depth_loss and "points" in view:
+            loss = loss + cfg.depth_lambda * depth_loss(
+                out, view["points"], view["depths"], view["points_valid"])
         if cfg.opacity_reg > 0:
             loss = loss + cfg.opacity_reg * torch.mean(
                 torch.abs(torch.sigmoid(splats.opacities)) * splats.alive)
         if cfg.scale_reg > 0:
             loss = loss + cfg.scale_reg * torch.mean(
                 torch.abs(torch.exp(splats.scales)) * splats.alive[:, None])
+        if "bilgrid" in self.aux:
+            loss = loss + 10.0 * bilateral.total_variation_loss(
+                self.aux["bilgrid"].grids)
         return loss, (out, l1, s)
 
     # ------------------------------------------------------------- training
@@ -226,20 +279,31 @@ class Runner:
                              dtype=splats.means.dtype, requires_grad=True)
         results = [self._loss(splats, v, offset, sh_degree) for v in views]
         loss = torch.stack([r[0] for r in results]).mean()
-        self.optimizer.zero_grad(set_to_none=True)
+        optimizers = [self.optimizer, *self.aux_opt.values()]
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
         loss.backward()
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:       # optax steps every group each update
-                    p.grad = torch.zeros_like(p)
-        splats_mod.set_lr(self.optimizer, self.n_updates)
-        self.optimizer.step()
-        self.n_updates += 1
+        for opt in optimizers:
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    # optax steps every parameter each update, with a zero
+                    # gradient where the loss does not reach it (the
+                    # appearance module's, which the loss never calls)
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
         outs = [r[1][0] for r in results]
-        l1 = torch.stack([r[1][1] for r in results]).mean()
-        s = torch.stack([r[1][2] for r in results]).mean()
         radii = torch.stack([o.radii for o in outs]).amax(0)
         seen = torch.stack([o.valid for o in outs]).any(0)
+        splats_mod.set_lr(self.optimizer, self.n_updates)
+        if self.cfg.visible_adam:
+            optim_mod.selective_step(self.optimizer, seen)
+        else:
+            self.optimizer.step()
+        for opt in self.aux_opt.values():
+            opt.step()
+        self.n_updates += 1
+        l1 = torch.stack([r[1][1] for r in results]).mean()
+        s = torch.stack([r[1][2] for r in results]).mean()
         return loss.detach(), l1.detach(), s.detach(), offset.grad, radii, seen
 
     def _views(self, rng):
@@ -259,9 +323,25 @@ class Runner:
                 K[0, 2] -= x0
                 K[1, 2] -= y0
                 v["K"] = K
-        return [{"image": self._tensor(v["image"]), "K": self._tensor(v["K"]),
-                 "camtoworld": self._tensor(v["camtoworld"]),
-                 "image_id": v["image_id"]} for v in views]
+        return [self._prepare(v) for v in views]
+
+    def _prepare(self, v):
+        """A dataset item -> the tensors ``_loss`` reads; with the depth
+        loss, the view's SfM points padded to MAX_DEPTH_PTS with a mask."""
+        out = {"image": self._tensor(v["image"]), "K": self._tensor(v["K"]),
+               "camtoworld": self._tensor(v["camtoworld"]),
+               "image_id": v["image_id"]}
+        if self.cfg.depth_loss:
+            pts = np.zeros((MAX_DEPTH_PTS, 2), np.float32)
+            dep = np.zeros(MAX_DEPTH_PTS, np.float32)
+            n = min(len(v.get("points", [])), MAX_DEPTH_PTS)
+            if n:
+                pts[:n] = v["points"][:n]
+                dep[:n] = v["depths"][:n]
+            out["points"], out["depths"] = self._tensor(pts), self._tensor(dep)
+            out["points_valid"] = torch.arange(MAX_DEPTH_PTS,
+                                               device=self.device) < n
+        return out
 
     def train(self):
         cfg = self.cfg
@@ -276,28 +356,10 @@ class Runner:
                 views, sh_degree)
             losses.append(float(loss))
 
-            # densification cadence (DefaultStrategy)
-            sc = self.strategy_cfg
-            self.strategy_state = strat_mod.accumulate(
-                self.strategy_state, g_offset, radii, valid)
-            if (sc.refine_start_iter <= step < sc.refine_stop_iter
-                    and step % sc.refine_every == 0 and step > 0):
-                alive_before = int(self.splats.alive.sum())
-                self.splats, self.strategy_state, n_grow, n_prune = \
-                    strat_mod.refine(self.splats, self.optimizer,
-                                     self.strategy_state, self.scene_scale,
-                                     sc, prune_too_big=step > sc.reset_every,
-                                     generator=self.generator)
-                alive = int(self.splats.alive.sum())
-                self.refines.append(dict(step=step, grown=n_grow,
-                                         pruned=n_prune,
-                                         alive_before=alive_before,
-                                         alive_after=alive))
-                if step % 500 == 0:
-                    self.log(f"step {step}: +{n_grow} -{n_prune} splats, "
-                             f"alive={alive}")
-            if step % sc.reset_every == 0 and 0 < step < sc.refine_stop_iter:
-                strat_mod.reset_opacity(self.splats, self.optimizer)
+            if cfg.strategy == "default":
+                self._default_strategy(step, g_offset, radii, valid)
+            else:
+                self._mcmc_strategy(step)
             self.step_s.append(time.perf_counter() - t0)
 
             if step % 100 == 0:
@@ -307,11 +369,52 @@ class Runner:
                 self._log_scalars(step, loss, l1, s, views, sh_degree)
             if step + 1 in cfg.eval_steps:
                 self.eval(step + 1)
+                if cfg.compression == "png":
+                    from instantsfm_tpu_torch.gs import compression
+                    cdir = os.path.join(cfg.result_dir, "compression",
+                                        f"step{step + 1}")
+                    compression.compress_splats(self.splats, cdir)
+                    self.log(f"compressed model written to {cdir}")
             if step + 1 in cfg.save_steps:
                 self.save_checkpoint(step + 1)
         self.log(f"training done in {time.time() - t_start:.1f}s")
         self.writer.flush()
         return losses
+
+    def _default_strategy(self, step, g_offset, radii, valid):
+        """Densification cadence of the DefaultStrategy."""
+        sc = self.strategy_cfg
+        self.strategy_state = strat_mod.accumulate(
+            self.strategy_state, g_offset, radii, valid)
+        if (sc.refine_start_iter <= step < sc.refine_stop_iter
+                and step % sc.refine_every == 0 and step > 0):
+            alive_before = int(self.splats.alive.sum())
+            self.splats, self.strategy_state, n_grow, n_prune = \
+                strat_mod.refine(self.splats, self.optimizer,
+                                 self.strategy_state, self.scene_scale,
+                                 sc, prune_too_big=step > sc.reset_every,
+                                 generator=self.generator)
+            alive = int(self.splats.alive.sum())
+            self.refines.append(dict(step=step, grown=n_grow, pruned=n_prune,
+                                     alive_before=alive_before,
+                                     alive_after=alive))
+            if step % 500 == 0:
+                self.log(f"step {step}: +{n_grow} -{n_prune} splats, "
+                         f"alive={alive}")
+        if step % sc.reset_every == 0 and 0 < step < sc.refine_stop_iter:
+            strat_mod.reset_opacity(self.splats, self.optimizer)
+
+    def _mcmc_strategy(self, step):
+        """MCMC: relocate the low-opacity gaussians on the refine cadence,
+        then position noise every step."""
+        mc = self.mcmc_cfg
+        if (mc.refine_start_iter <= step < mc.refine_stop_iter
+                and step % mc.refine_every == 0 and step > 0):
+            moved = strat_mod.mcmc_relocate(self.splats, self.optimizer,
+                                            mc.min_opacity, self.generator)
+            self.relocations.append(dict(step=step, moved=moved))
+        strat_mod.mcmc_noise(self.splats, 1.6e-4 * self.scene_scale,
+                             mc.noise_lr, self.generator)
 
     def _log_scalars(self, step, loss, l1, s, views, sh_degree):
         """Scalar stream (reference tb cadence, gsplat_trainer.py:708-723)."""
@@ -328,7 +431,7 @@ class Runner:
             H, W = v["image"].shape[:2]
             with torch.no_grad():
                 out = self._render(self.splats, v["camtoworld"], v["K"], W, H,
-                                   sh_degree, None,
+                                   sh_degree, v["image_id"], None,
                                    torch.zeros(3, device=self.device))
             canvas = torch.cat([v["image"], torch.clamp(out.rgb, 0, 1)], 1)
             w.add_image("train/render", canvas.cpu().numpy(), step)
@@ -338,22 +441,35 @@ class Runner:
 
     @torch.no_grad()
     def eval(self, step: int):
-        """PSNR and SSIM over the val split (LPIPS is not ported)."""
+        """PSNR and SSIM over the val split, and LPIPS where its weights
+        file is present (``lpips.default_weights_path``); the val views are
+        pose-adjusted by their image ids, as in JAX."""
+        from instantsfm_tpu_torch import convert
+        from instantsfm_tpu_torch.gs import lpips as lpips_mod
+
         cfg = self.cfg
-        psnrs, ssims = [], []
+        w = lpips_mod.try_load_default()
+        net = None if w is None else convert.lpips_from_numpy(w, self.device)
+        psnrs, ssims, lpipss = [], [], []
         for i in range(len(self.valset)):
             b = self.valset[i]
             H, W = b["image"].shape[:2]
             out = self._render(self.splats, self._tensor(b["camtoworld"]),
                                self._tensor(b["K"]), W, H, cfg.sh_degree,
-                               None, torch.zeros(3, device=self.device))
+                               b["image_id"], None,
+                               torch.zeros(3, device=self.device))
             rgb = torch.clamp(out.rgb, 0, 1)
             gt = self._tensor(b["image"])
             psnrs.append(float(ssim_mod.psnr(rgb, gt)))
             ssims.append(float(ssim_mod.ssim(rgb, gt)))
+            if net is not None:
+                with full_f32():
+                    lpipss.append(float(net(rgb, gt)))
         stats = {"psnr": float(np.mean(psnrs)) if psnrs else 0.0,
                  "ssim": float(np.mean(ssims)) if ssims else 0.0,
                  "num_GS": int(self.splats.alive.sum())}
+        if lpipss:
+            stats["lpips"] = float(np.mean(lpipss))
         self.stats[step] = stats
         self.log(f"eval @ {step}: {stats}")
         for k, v in stats.items():
@@ -388,6 +504,56 @@ class Runner:
             dst.copy_(torch.as_tensor(z[f]))
         return int(z["step"])
 
+    @torch.no_grad()
     def render_traj(self, kind: str = "interp", n_frames: int = 60,
-                    fps: int = 30):
-        raise not_ported("Runner.render_traj", "gs/traj.py")
+                    fps: int = 30) -> str:
+        """Render ``n_frames`` along an interpolated, ellipse or spiral path
+        through the training cameras (first camera's K and size, image 0's
+        pose delta, as in JAX); writes ``videos/traj_{kind}.mp4``, or an npz
+        of the frames where imageio's mp4 writer is not installed."""
+        from instantsfm_tpu_torch.gs import traj as traj_mod
+
+        c2w = self.parser.camtoworlds
+        if kind == "interp":
+            sub = c2w[::max(len(c2w) // 10, 1)]
+            path = traj_mod.generate_interpolated_path(
+                sub, n_interp=max(n_frames // max(len(sub) - 1, 1), 1))
+        elif kind == "ellipse":
+            path = traj_mod.generate_ellipse_path(c2w, n_frames)
+        else:
+            path = traj_mod.generate_spiral_path(c2w, n_frames)
+        K = self._tensor(self.parser.Ks[0])
+        W, H = int(self.parser.widths[0]), int(self.parser.heights[0])
+        frames = []
+        for M in path[:n_frames]:
+            out = self._render(self.splats, self._tensor(M), K, W, H,
+                               self.cfg.sh_degree, 0, None,
+                               torch.zeros(3, device=self.device))
+            frames.append((torch.clamp(out.rgb, 0, 1) * 255).to(torch.uint8)
+                          .cpu().numpy())
+        video_dir = os.path.join(self.cfg.result_dir, "videos")
+        os.makedirs(video_dir, exist_ok=True)
+        out_path = _write_video(os.path.join(video_dir, f"traj_{kind}"),
+                                frames, fps)
+        self.log(f"trajectory render saved: {out_path}")
+        return out_path
+
+
+def depth_loss(out, points, depths, points_valid):
+    """Disparity L1 at the SfM points of a view: points [M, 2] pixel
+    coordinates (truncated to integers, then clipped, as JAX's
+    ``astype(int32)``), depths [M], points_valid [M]; a point counts where
+    its rendered alpha exceeds 0.5.  The gradient reaches the compositing
+    kernel's alpha and depth rows."""
+    H, W = out.alpha.shape
+    px = torch.clamp(points[:, 0].to(torch.int64), 0, W - 1)
+    py = torch.clamp(points[:, 1].to(torch.int64), 0, H - 1)
+    flat = py * W + px
+    acc = torch.index_select(out.alpha.reshape(-1), 0, flat)
+    d = torch.index_select(out.depth.reshape(-1), 0, flat) \
+        / torch.clamp(acc, min=1e-6)
+    valid = points_valid & (depths > 1e-6) & (acc > 0.5)
+    disp_err = torch.abs(1.0 / torch.clamp(d, min=1e-6)
+                         - 1.0 / torch.clamp(depths, min=1e-6))
+    disp_err = torch.where(valid, disp_err, torch.zeros_like(disp_err))
+    return torch.sum(disp_err) / torch.clamp(valid.sum(), min=1)

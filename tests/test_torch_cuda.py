@@ -326,6 +326,125 @@ def test_gs_runner_card_matches_cpu(tmp_path):
 
 
 @pytest.mark.cuda
+def test_gs_options_runner_card_matches_cpu(tmp_path):
+    """Ten Runner steps with pose_opt, app_opt, the bilateral grid, the
+    depth loss, selective Adam and pose noise on the card against the CPU,
+    on a small scene: ``chip_smoke.gs_opts_card_vs_cpu``'s bounds (losses
+    within rel 1e-4, pose deltas within 0.05 lr, grids 99.5% within
+    0.05 lr and all within 2 lr a step)."""
+    _need_card()
+    import chip_smoke
+
+    rec, checks = chip_smoke.gs_opts_card_vs_cpu(str(tmp_path))
+    assert all(checks.values()), (checks, rec)
+
+
+@pytest.mark.cuda
+def test_depth_loss_k3_card_matches_cpu(tmp_path, monkeypatch):
+    """One view's loss with the depth term on the card and on the CPU: K3's
+    gradient on the card's own inputs (a gout with nonzero alpha and depth
+    rows) within 1e-4 of each column's max of its plain version, the loss
+    within rel 1e-5 and the splat gradients within 1e-4 of each field's
+    max (the quaternions' are float noise on isotropic gaussians and are
+    left out)."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.gs import splats as gs_splats
+    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+
+    chip_smoke.make_gs_scene(str(tmp_path), "cpu", 600, 6, 96, 72)
+    monkeypatch.setitem(__import__("sys").modules, "torch.utils.tensorboard",
+                        None)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg = GSConfig(data_dir=str(tmp_path),
+                       result_dir=str(tmp_path / f"out_{dev}"), max_steps=1,
+                       test_every=3, sh_degree=1, sh_degree_interval=1,
+                       tile_capacity=128, eval_steps=(), save_steps=(),
+                       capacity_mult=2.0, init_opa=0.5, depth_loss=True)
+        r = Runner(cfg, log=lambda *a: None, device=dev)
+        loss, _ = r._loss(r.splats, r._prepare(r.trainset[1]), None, 1)
+        loss.backward()
+        res[dev] = (loss.item(), {
+            f: getattr(r.splats, f).grad for f in gs_splats.FLOAT_FIELDS})
+        if dev == "cpu":          # the card's K3 inputs, kept at its launcher
+            launch = k23._launch_bwd
+            kept = []
+            monkeypatch.setattr(k23, "_launch_bwd",
+                                lambda *a: kept.append(a) or launch(*a))
+    attrs, logt, gout, ntx = kept[0]
+    assert gout[:, 3].abs().max() > 0 and gout[:, 4].abs().max() > 0
+    got = k23.composite_bwd(attrs, logt, gout, ntx).cpu()
+    want = k23.composite_bwd_reference(attrs.cpu(), logt.cpu(), gout.cpu(),
+                                       ntx)
+    for c in range(10):
+        _rel_close(got[..., c], want[..., c], 1e-4)
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for f, g in res["cuda"][1].items():
+        if f != "quats":
+            _rel_close(g.cpu(), res["cpu"][1][f], 1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_adam_card_keeps_unseen_rows():
+    """Three selective Adam steps on the card: the unseen rows keep their
+    parameters and both moments bit for bit; the parameters match the CPU
+    within 1e-4 of the lr (a few float32 ulps of parameters near 1, as
+    ``tests/test_torch_gs_train.py`` holds Adam against optax) and the
+    first moments within 1e-6 of their max."""
+    _need_card()
+    from instantsfm_tpu_torch.gs import optim as gs_optim
+
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal((4096, 15, 3)).astype(np.float32)
+    grads = rng.standard_normal((3,) + p0.shape).astype(np.float32)
+    masks = rng.uniform(size=(3, 4096)) < 0.5
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = torch.tensor(p0, device=dev, requires_grad=True)
+        opt = torch.optim.Adam([p], lr=1e-2, eps=1e-15)
+        for g, m in zip(grads, masks):
+            vis = torch.tensor(m, device=dev)
+            st = opt.state.get(p, {})
+            before = [p.detach().clone()] + [
+                st[k].clone() if k in st else torch.zeros_like(p)
+                for k in gs_optim.MOMENTS]
+            p.grad = torch.tensor(g, device=dev)
+            gs_optim.selective_step(opt, vis)
+            after = [p.detach()] + [opt.state[p][k] for k in gs_optim.MOMENTS]
+            for b, a in zip(before, after):
+                assert torch.equal(a[~vis], b[~vis])
+        out[dev] = (p.detach().cpu(), opt.state[p]["exp_avg"].cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-4 * 1e-2)
+    _rel_close(out["cuda"][1], out["cpu"][1], 1e-6)
+
+
+@pytest.mark.cuda
+def test_lpips_card_matches_cpu():
+    """LPIPS with seeded random weights on an 800x608 pair: the card (full
+    float32, no TF32) within rel 1e-4 of the CPU."""
+    _need_card()
+    from instantsfm_tpu_torch import convert
+    from instantsfm_tpu_torch.gs import lpips
+    from instantsfm_tpu_torch.utils.device import full_f32
+
+    w = lpips.random_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 1, (608, 800, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1) \
+        .astype(np.float32)
+    vals = {}
+    for dev in ("cpu", "cuda"):
+        net = convert.lpips_from_numpy(w, dev)
+        with torch.no_grad(), full_f32():
+            vals[dev] = float(net(torch.tensor(a, device=dev),
+                                  torch.tensor(b, device=dev)))
+    assert vals["cpu"] > 0
+    assert abs(vals["cuda"] - vals["cpu"]) <= 1e-4 * vals["cpu"], vals
+
+
+@pytest.mark.cuda
 def test_mapper_card_matches_cpu(tmp_path):
     """The global mapper on a 14-image ring database
     (``chip_smoke.write_ring_db``: 600 points, each image matched with the

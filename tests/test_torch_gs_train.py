@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.torch_cpu import lean_cpu  # noqa: F401  (module fixture)
 from instantsfm_tpu.gs import data as jdata
 from instantsfm_tpu.gs import splats as jsp
 from instantsfm_tpu.gs import ssim as jssim
@@ -317,21 +318,33 @@ def test_runner_three_steps_match_jax(scene, tmp_path):
     assert rel.max() <= 1e-3, rel.max()
 
 
-@pytest.mark.parametrize("option", sorted(NOT_PORTED) + ["mcmc"])
+@pytest.mark.parametrize("option", sorted(NOT_PORTED))
 def test_runner_rejects_unported_options(option):
-    """Options outside the slice raise, naming their ROADMAP item, before
+    """Options outside the port raise, naming their ROADMAP item, before
     any data is read."""
-    kw = ({"strategy": "mcmc"} if option == "mcmc" else
-          {option: "png" if option == "compression" else True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        Runner(GSConfig(data_dir="/nonexistent", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+        Runner(GSConfig(data_dir="/nonexistent", **{option: True}),
+               device="cpu")
 
 
 def test_cli_trains_evaluates_and_checkpoints(scene, tmp_path):
+    """Train, eval and checkpoint, then the PLY from the final checkpoint
+    (one vertex per alive gaussian) and an ellipse trajectory (an npz of
+    frames where imageio's mp4 writer is missing)."""
     out = str(tmp_path / "cli")
     assert tcli.main(["--data_path", scene, "--result_dir", out,
-                      "--max_steps", "2", "--device", "cpu"]) == 0
-    assert os.path.exists(os.path.join(out, "ckpts", "ckpt_2.npz"))
+                      "--max_steps", "2", "--device", "cpu", "--export_ply",
+                      "--render_traj", "ellipse"]) == 0
+    ckpt = os.path.join(out, "ckpts", "ckpt_2.npz")
     assert os.path.exists(os.path.join(out, "stats", "val_2.json"))
-    with pytest.raises(NotImplementedError, match="gs/ply.py"):
-        tcli.main(["--data_path", scene, "--export_ply", "--device", "cpu"])
+    alive = int(np.load(ckpt)["alive"].sum())
+    with open(os.path.join(out, "point_cloud.ply"), "rb") as f:
+        ply = f.read()
+    assert f"element vertex {alive}\n".encode() in ply
+    assert len(ply.split(b"end_header\n", 1)[1]) \
+        == alive * 4 * (6 + 3 + 3 * 15 + 1 + 3 + 4)    # SH degree 3
+    videos = os.listdir(os.path.join(out, "videos"))
+    assert len(videos) == 1 and videos[0].startswith("traj_ellipse.")
+    if videos[0].endswith(".npz"):
+        frames = np.load(os.path.join(out, "videos", videos[0]))["frames"]
+        assert frames.shape == (60, 72, 96, 3) and frames.dtype == np.uint8
