@@ -89,13 +89,30 @@ Phases (any failure exits non-zero):
      losses, pose deltas and bilateral grids must agree.  K2/K3 are then
      held against their plain versions on one view's real tiles of the GS
      phase;
-  12. prints the kernels line, the card line and, last, the ok line.
+  12. multi-device paths (``DIST`` line; the machine has one card, and
+     NCCL takes one rank a card): over a world-1 NCCL group in this
+     process, one BA solve at phase 4's shape through
+     ``parallel.sharded.optimize_sharded`` (the point-local partition, the
+     all-reduces, K1 on the rank's buckets) against the single-device
+     solve on the same input, one GP step at phase 4's GP size through the
+     point-local step against that phase's step, and the gaussian-sharded
+     3DGS loss and gradients on phase 10's scene (2 views) against one
+     device's, then one distributed train step; K1 is held against its
+     plain version on the first input of the sharded BA and GP, K2/K3 on
+     the distributed step's first view, and each must have launched.
+     Then two ranks on the card over gloo (this script with
+     ``--dist-worker``, two processes) run ``cli.feat`` and ``cli.sfm`` on
+     phase 7's views: extraction, matching and relative pose shared, GP
+     and BA point-sharded, rank 0 writing; the model is held to phase 7's
+     bars and K1 must launch on both ranks;
+  13. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -127,6 +144,7 @@ from instantsfm_tpu_torch.io.colmap_db import (ColmapDatabase,
                                                read_colmap_database)
 from instantsfm_tpu_torch.io.image import imwrite
 from instantsfm_tpu_torch.math import lie
+from instantsfm_tpu_torch.parallel import multihost, sharded
 from instantsfm_tpu_torch.pipeline import ba, preprocess, relpose, vgc
 from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
 from instantsfm_tpu_torch.pipeline.writer import write_reconstruction
@@ -663,8 +681,8 @@ def _assert_rel(name, got, want, rel, max_ties=0, per_tile=False):
 
 def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False,
              per_tile=False):
-    """K2 and K3 against their plain versions on the card, timed.
-    Tolerances (float32, sums in other orders): rel 1e-5 of each output row
+    """K2 and K3 against their plain versions on the card, timed (not with
+    ``reps`` 0).  Tolerances (float32, sums in other orders): rel 1e-5 of each output row
     group's max for K2, 1e-4 of each gradient column's max for K3; with
     ``per_tile`` each max is taken over each tile apart (tiles of unlike
     scales: the conic gradients of a gaussian 1e6 px away reach 1e11).  The
@@ -705,6 +723,11 @@ def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False,
     if (got_g[..., 10:] != 0).any() or (got_g[dead] != 0).any():
         raise AssertionError(f"K3 {name}: rows of unentered chunks or "
                              "columns 10..15 are not zero")
+    if not reps:      # the check alone
+        return [dict(case=name, tiles=attrs.shape[0], tied_tiles=len(tied),
+                     max_abs_err=max(e for e, _, _ in part),
+                     max_rel_err=max(r for _, _, r in part))
+                for part in (fwd + [(logt_err, logt_ties, 0)], bwd)]
 
     work = composite_work(attrs, got_logt, ntx)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -934,8 +957,9 @@ def run_ba(device):
     return rec, gt
 
 
-def run_gp_step(device, gt):
-    """One global-positioning LM step (PC=3) at the BA scene's size."""
+def gp_problem(device, gt):
+    """Global positioning (PC = 3) at the BA scene's size: 8 observations
+    a point of random cameras, centers and points perturbed by 0.5."""
     rng = np.random.default_rng(SEED + 1)
     C, T, per = len(gt["centers"]), len(gt["pts"]), 8
     obs_pt = np.repeat(np.arange(T), per).astype(np.int32)
@@ -955,7 +979,12 @@ def run_gp_step(device, gt):
         {"tx": f32(t_obs[:, 0]), "ty": f32(t_obs[:, 1]),
          "tz": f32(t_obs[:, 2]), "w": f32(np.ones(O))},
         torch.ones(O, dtype=torch.bool, device=device))
-    params, obs, buckets, _ = bucketize_problem(params, obs)
+    return params, obs
+
+
+def run_gp_step(device, gt):
+    """One global-positioning LM step (PC=3) at the BA scene's size."""
+    params, obs, buckets, _ = bucketize_problem(*gp_problem(device, gt))
     problem, kernel = make_gp_problem(), robust.huber(0.1)
     cfg = block_lm.LMConfig(solver="pcg", radius_init=1e3)
     dev32 = lambda v: torch.tensor(v, device=device, dtype=torch.float32)
@@ -1505,44 +1534,45 @@ def pixels_gs_tail(work, device, steps=PIX_GS_STEPS):
                 gs_k23_per_step=steps * cfg.batch_size)
 
 
-def run_pixels(device):
+def run_pixels(device, work):
     """Pixels to poses to 3DGS through the port's entry points, as
-    ``tests/test_pixels_e2e.py`` does with JAX's: 16 rendered views, then
-    ``cli.feat`` (SIFT and matching on the card) and ``cli.sfm`` (the mapper
-    on the card, float32), then ``sparse/0`` read back and held against the
-    render's ground truth with that test's bars, then that test's 3DGS tail
-    (``pixels_gs_tail``) on the reconstruction: the loss falls, PSNR > 12
-    at step 50, and every training step went through K2 and K3."""
+    ``tests/test_pixels_e2e.py`` does with JAX's: 16 rendered views in
+    ``work``, then ``cli.feat`` (SIFT and matching on the card) and
+    ``cli.sfm`` (the mapper on the card, float32), then ``sparse/0`` read
+    back and held against the render's ground truth with that test's bars,
+    then that test's 3DGS tail (``pixels_gs_tail``) on the reconstruction:
+    the loss falls, PSNR > 12 at step 50, and every training step went
+    through K2 and K3.  Returns (PIXELS record, the render's ground
+    truth)."""
     from instantsfm_tpu_torch.cli import feat as cli_feat
     from instantsfm_tpu_torch.cli import sfm as cli_sfm
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as work:
-        t0 = time.perf_counter()
-        k23.composite_fwd.launches = 0
-        gt = render_plane_scene(work, device)
-        render_s = time.perf_counter() - t0
-        k2_render = k23.composite_fwd.launches
-        feat_stats = []
-        generate = handler.generate_database
+    t0 = time.perf_counter()
+    k23.composite_fwd.launches = 0
+    gt = render_plane_scene(work, device)
+    render_s = time.perf_counter() - t0
+    k2_render = k23.composite_fwd.launches
+    feat_stats = []
+    generate = handler.generate_database
 
-        def keep_stats(*args, **kw):
-            feat_stats.append(generate(*args, **kw))
-            return feat_stats[-1]
+    def keep_stats(*args, **kw):
+        feat_stats.append(generate(*args, **kw))
+        return feat_stats[-1]
 
-        handler.generate_database = keep_stats
-        try:
-            t0 = time.perf_counter()
-            rc_feat = cli_feat.main(["--data_path", work, "--max_keypoints",
-                                     "3000", "--match_ratio", "0.9"])
-            feat_s = time.perf_counter() - t0
-        finally:
-            handler.generate_database = generate
+    handler.generate_database = keep_stats
+    try:
         t0 = time.perf_counter()
-        rc_sfm = cli_sfm.main(["--data_path", work])
-        sfm_s = time.perf_counter() - t0
-        n_reg, n_pts, rot, ate = model_errors(
-            os.path.join(work, "sparse", "0"), gt)
-        gs = pixels_gs_tail(work, device)
+        rc_feat = cli_feat.main(["--data_path", work, "--max_keypoints",
+                                 "3000", "--match_ratio", "0.9"])
+        feat_s = time.perf_counter() - t0
+    finally:
+        handler.generate_database = generate
+    t0 = time.perf_counter()
+    rc_sfm = cli_sfm.main(["--data_path", work])
+    sfm_s = time.perf_counter() - t0
+    n_reg, n_pts, rot, ate = model_errors(
+        os.path.join(work, "sparse", "0"), gt)
+    gs = pixels_gs_tail(work, device)
     st = feat_stats[0]
     rec = dict(views=PIX_VIEWS, width=PIX_W, height=PIX_H, render_s=render_s,
                k2_launches_render=k2_render, feat_cli_s=feat_s,
@@ -1573,7 +1603,7 @@ def run_pixels(device):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"pixels-to-poses path failed: {failed}")
-    return rec
+    return rec, gt
 
 
 def match_bound(pairs, K, D=128):
@@ -2574,6 +2604,383 @@ def run_gs_opts(device, root, gs_rec, profile=False):
     return rec
 
 
+# ------------------------------------------------------ multi-device path
+
+DIST_GS_BATCH = 2          # views of the distributed 3DGS step
+DIST_WORKER_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def first_k1_input(store):
+    """A wrapper for ``block_lm.schur_wchain`` that keeps (a copy of) the
+    first input whose x is not 0: PCG's first matvec is of x0 = 0."""
+    launch = block_lm.schur_wchain
+
+    def keep(*args):
+        if not store and bool(args[2].any()):
+            store.append(tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args))
+        return launch(*args)
+    return launch, keep
+
+
+def solved_images(images, cam):
+    out = copy.deepcopy(images)
+    out.qvec = cam["q"].detach().cpu().numpy().astype(np.float64)
+    out.tvec = cam["t"].detach().cpu().numpy().astype(np.float64)
+    return out
+
+
+def dist_ba(device):
+    """One BA solve at phase 4's shape (float32, PCG, at most BA_ITER_CAP
+    LM iterations) alone and through ``sharded.optimize_sharded`` over the
+    world-1 NCCL group: the point-local partition, all-reduces and K1 on the
+    rank's buckets."""
+    cameras, images, tracks, gt = make_scene()
+    params, obs = scene_problem(cameras, images, tracks, torch.float32,
+                                device)
+    opts = dict(config.BUNDLE_ADJUSTER_OPTIONS, max_num_iterations=BA_ITER_CAP)
+    cfg = dataclasses.replace(ba._lm_config(opts), solver="pcg")
+    problem = make_ba_problem(cameras.uniform_model_id)
+    kernel = robust.huber(float(opts["thres_loss_function"]))
+    cost = lambda cam, pts: float(block_lm.compute_cost(
+        problem, params._replace(cam=cam, pts=pts), obs, kernel))
+    cost0 = cost(params.cam, params.pts)
+    rot0, cen0 = pose_errors(images, gt)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cam1, pts1, h1 = sharded.optimize_auto(problem, kernel, cfg, params, obs,
+                                           device=device)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+
+    kept = []
+    launch, keep = first_k1_input(kept)
+    block_lm.schur_wchain = keep
+    debug.drain_stats()
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
+    try:
+        t0 = time.perf_counter()
+        cam2, pts2, h2 = sharded.optimize_sharded(
+            problem, kernel, cfg, params, obs, device=device)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    finally:
+        block_lm.schur_wchain = launch
+    launches = k1.schur_wchain.launches
+    pcg = debug.drain_stats().get("pcg_iters", [])
+    k1_rec = k1_sfm_check("sharded BA", kept[0], device)
+    rot1, cen1 = pose_errors(solved_images(images, cam1), gt)
+    rot2, cen2 = pose_errors(solved_images(images, cam2), gt)
+    rec = dict(single_s=single_s, sharded_s=sharded_s,
+               lm_iters_single=len(h1), lm_iters_sharded=len(h2),
+               cost_before=cost0, cost_single=cost(cam1, pts1),
+               cost_sharded=cost(cam2, pts2),
+               rot_err_deg_before=rot0, rot_err_deg_single=rot1,
+               rot_err_deg_sharded=rot2, center_err_rel_before=cen0,
+               center_err_rel_single=cen1, center_err_rel_sharded=cen2,
+               k1_launches=launches, pcg_iters=sum(pcg), k1=k1_rec)
+    checks = {
+        "sharded BA: cost falls": rec["cost_sharded"] < cost0,
+        "sharded BA: rotation error no worse": rot2 <= rot0,
+        "sharded BA: center error no worse": cen2 <= cen0,
+        "sharded BA: cost within 1% of the single-device solve's":
+            abs(rec["cost_sharded"] - rec["cost_single"])
+            <= 0.01 * rec["cost_single"],
+        "sharded BA: rotation error within 10% of the single-device "
+        "solve's": rot2 <= 1.1 * rot1 + 1e-4,
+        "sharded BA: center error within 10% of the single-device "
+        "solve's": cen2 <= 1.1 * cen1 + 1e-6,
+        "sharded BA: K1 launched at least once per PCG iteration":
+            launches >= sum(pcg) > 0,
+    }
+    return rec, checks
+
+
+def dist_gp(device, gt, gp_rec):
+    """One GP LM step at the GP phase's size through the point-local step
+    over the world-1 NCCL group, against the GP phase's single-device
+    step."""
+    params, obs = gp_problem(device, gt)
+    problem, kernel = make_gp_problem(), robust.huber(0.1)
+    cfg = block_lm.LMConfig(solver="pcg", radius_init=1e3)
+    params_b, obs_b, buckets, _ = bucketize_problem(params, obs)
+    params_p, obs_p, meta = sharded.partition_bucketed(params_b, obs_b,
+                                                       buckets, 1)
+    params_l, obs_l = sharded.rank_slice(params_p, obs_p, 0, meta.local_T,
+                                         meta.local_O)
+    step = sharded.make_pointlocal_lm_step(problem, kernel, cfg,
+                                           buckets=meta.local_buckets,
+                                           device=device)
+    dev32 = lambda v: torch.tensor(v, device=device, dtype=torch.float32)
+    state = block_lm.LMState(params_l, dev32(1.0 / cfg.radius_init),
+                             dev32(float("inf")), dev32(0.0), dev32(0.0))
+    kept = []
+    launch, keep = first_k1_input(kept)
+    block_lm.schur_wchain = keep
+    debug.drain_stats()
+    torch.cuda.synchronize()
+    k1.schur_wchain.launches = 0
+    try:
+        t0 = time.perf_counter()
+        state = step(state, obs_l)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        block_lm.schur_wchain = launch
+    launches = k1.schur_wchain.launches
+    pcg = debug.drain_stats().get("pcg_iters", [])
+    rec = dict(ms=ms, cost_after=float(state.cost),
+               cost_after_single=gp_rec["cost_after"], k1_launches=launches,
+               pcg_iters=sum(pcg),
+               k1=k1_sfm_check("sharded GP", kept[0], device))
+    checks = {
+        "sharded GP step: cost within 1e-3 of the single-device step's":
+            abs(rec["cost_after"] - gp_rec["cost_after"])
+            <= 1e-3 * gp_rec["cost_after"],
+        "sharded GP step: cost falls":
+            rec["cost_after"] <= gp_rec["cost_before"],
+        "sharded GP step: K1 launched at least once per PCG iteration":
+            launches >= sum(pcg) > 0,
+    }
+    return rec, checks
+
+
+def dist_gs(device, root):
+    """The gaussian-sharded 3DGS loss and its gradients on the GS phase's
+    scene (batch of 2 views, the initial scales perturbed per axis) over
+    the world-1 NCCL group, against the Runner's single-device loss; then
+    one distributed train step, whose K2
+    and K3 launches are counted; K2/K3 held against their plain versions on
+    the distributed step's first view."""
+    from instantsfm_tpu_torch.gs import distributed as gd
+
+    runner = Runner(gs_main_cfg(root, "dist", batch_size=DIST_GS_BATCH),
+                    log=lambda *a: None, device=device)
+    views = runner._views(np.random.default_rng(SEED))
+    sh_degree = 3
+    pool = runner.splats
+    with torch.no_grad():
+        # anisotropic scales: the initial gaussians are isotropic, so their
+        # quaternion gradients would be float noise, which no bar can hold
+        pool.scales.add_(0.3 * torch.randn(
+            pool.scales.shape, generator=torch.Generator().manual_seed(SEED)
+        ).to(device))
+    offset = torch.zeros((pool.means.shape[0], 2), device=device,
+                         requires_grad=True)
+    loss1 = torch.stack([runner._loss(pool, v, offset, sh_degree)[0]
+                         for v in views]).mean()
+    loss1.backward()
+    g1 = {f: getattr(pool, f).grad.clone() for f in gs_splats.FLOAT_FIELDS}
+    g1["offset"] = offset.grad.clone()
+
+    batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
+             "K": torch.stack([v["K"] for v in views]),
+             "image": torch.stack([v["image"] for v in views])}
+
+    def shard():
+        sp = gd.shard_splats(gd.pad_splats(pool, 1), 0, 1)
+        for f in gs_splats.FLOAT_FIELDS:
+            getattr(sp, f).requires_grad_(True)
+        return sp
+
+    sp = shard()
+    offset2 = torch.zeros_like(offset, requires_grad=True)
+    objective, loss2, _, _, _ = gd.distributed_loss(
+        sp, offset2, batch, GS_W, GS_H, sh_degree, tiles_per_gauss=16,
+        tile_capacity=512)
+    objective.backward()
+    g2 = {f: getattr(sp, f).grad for f in gs_splats.FLOAT_FIELDS}
+    g2["offset"] = offset2.grad
+    grad_rel = {f: (g2[f] - g1[f]).abs().max().item()
+                / max(g1[f].abs().max().item(), 1e-30) for f in g1}
+
+    kept = []
+    composite = gs_raster.composite.composite_tiles
+
+    def keep_first(attrs, nchunks, ntx):
+        if not kept:
+            kept.append((attrs.detach().clone(), nchunks.clone(), ntx))
+        return composite(attrs, nchunks, ntx)
+
+    sp = shard()
+    opt = gs_splats.make_optimizer(gs_splats.float_params(sp),
+                                   runner.scene_scale)
+    step = gd.make_distributed_train_step(opt, GS_W, GS_H, tiles_per_gauss=16,
+                                          tile_capacity=512)
+    gs_raster.composite.composite_tiles = keep_first
+    torch.cuda.synchronize()
+    k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        loss3, g_offset, radii, seen = step(sp, batch, sh_degree)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        gs_raster.composite.composite_tiles = composite
+    k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+    k2_rec, k3_rec = k23_case("dist_view0", *kept[0], reps=0,
+                              allow_ties=True)
+    rec = dict(views=DIST_GS_BATCH, pool=int(pool.means.shape[0]),
+               loss_single=loss1.item(), loss_dist=loss2.item(),
+               loss_step=loss3.item(), grad_max_rel_err=grad_rel,
+               step_ms=step_ms, k2_launches=k2n, k3_launches=k3n,
+               k2=k2_rec, k3=k3_rec, seen=int(seen.sum()))
+    checks = {
+        "distributed 3DGS: loss within 1e-5 of one device's":
+            abs(rec["loss_dist"] - rec["loss_single"])
+            <= 1e-5 * rec["loss_single"],
+        "distributed 3DGS: gradients within 1e-4 of one device's "
+        "(relative to each field's largest)":
+            max(grad_rel.values()) <= 1e-4,
+        "distributed 3DGS step: loss finite": math.isfinite(rec["loss_step"]),
+        "distributed 3DGS step: K2 and K3 launched once per view":
+            k2n == k3n == DIST_GS_BATCH,
+    }
+    return rec, checks
+
+
+def dist_worker(rank, port, work, device="cuda"):
+    """One of two ranks on one card over gloo: ``cli.feat`` then
+    ``cli.sfm`` on ``work``; writes ``work/rank{rank}.json``."""
+    from instantsfm_tpu_torch.cli import feat as cli_feat
+    from instantsfm_tpu_torch.cli import sfm as cli_sfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(coordinator=f"localhost:{port}", num_processes=2,
+                         process_id=rank, device=device, backend="gloo",
+                         timeout_s=DIST_WORKER_TIMEOUT_S)
+    feat_stats = []
+    generate = handler.generate_database
+
+    def keep_stats(*args, **kw):
+        feat_stats.append(generate(*args, **kw))
+        return feat_stats[-1]
+
+    handler.generate_database = keep_stats
+    k1.schur_wchain.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc_feat = cli_feat.main(["--data_path", work, "--max_keypoints",
+                                 "3000", "--match_ratio", "0.9",
+                                 "--device", device])
+    finally:
+        handler.generate_database = generate
+    feat_s = time.perf_counter() - t0
+    multihost.barrier()
+    t0 = time.perf_counter()
+    rc_sfm = cli_sfm.main(["--data_path", work, "--device", device, "--f32"])
+    sfm_s = time.perf_counter() - t0
+    multihost.barrier()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, rc_feat=rc_feat, rc_sfm=rc_sfm,
+                       feat_s=feat_s, sfm_s=sfm_s,
+                       k1_launches=k1.schur_wchain.launches,
+                       feat=feat_stats[0] if feat_stats else None), f)
+    multihost.shutdown()
+
+
+def dist_two_ranks(pix_work, pix_gt, pix_rec):
+    """Two ranks on the one card over gloo (NCCL takes one rank a card):
+    ``cli.feat`` and ``cli.sfm`` on the PIXELS phase's views, each rank
+    extracting and matching its slice, relative pose exchanging chunks and
+    GP and BA sharding their points (PCG, K1 on each rank); rank 0 writes
+    the database and the model, held to the PIXELS phase's bars."""
+    work = os.path.join(pix_work, "two_ranks")
+    shutil.copytree(os.path.join(pix_work, "images"),
+                    os.path.join(work, "images"))
+    port = free_port()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         str(port), work], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in (0, 1)]
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_WORKER_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        tails = []
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n" + f.read()[-3000:])
+        raise AssertionError("two ranks on one card failed:\n"
+                             + "\n".join(tails))
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    n_reg, n_pts, rot, ate = model_errors(os.path.join(work, "sparse", "0"),
+                                          pix_gt)
+    st = ranks[0]["feat"]
+    rec = dict(seconds=seconds, feat_s=[r["feat_s"] for r in ranks],
+               sfm_s=[r["sfm_s"] for r in ranks],
+               k1_launches=[r["k1_launches"] for r in ranks],
+               keypoints=st["keypoints"], matches=st["matches"],
+               verified_pairs=st["verified_pairs"],
+               keypoints_one_rank=pix_rec["keypoints"],
+               matches_one_rank=pix_rec["matches"],
+               verified_pairs_one_rank=pix_rec["verified_pairs"],
+               registered=n_reg, registered_one_rank=pix_rec["registered"],
+               points=n_pts, rot_err_deg_max=float(rot.max()),
+               ate_rel_max=float(ate.max()))
+    checks = {
+        "two ranks: cli.feat and cli.sfm exit 0 on both":
+            all(r["rc_feat"] == 0 and r["rc_sfm"] == 0 for r in ranks),
+        "two ranks: rank 1 wrote no database": ranks[1]["feat"] is None,
+        f"two ranks: >= {PIX_VIEWS - 1}/{PIX_VIEWS} views registered":
+            n_reg >= PIX_VIEWS - 1,
+        "two ranks: more than 300 points": n_pts > 300,
+        "two ranks: max ATE < 2% of the extent": rec["ate_rel_max"] < 0.02,
+        "two ranks: max rotation error < 0.5 degree":
+            rec["rot_err_deg_max"] < 0.5,
+        "two ranks: K1 launched on both ranks":
+            all(n > 0 for n in rec["k1_launches"]),
+    }
+    return rec, checks
+
+
+def run_dist(device, gs_root, pix_work, pix_gt, pix_rec, gt, gp_rec):
+    """The multi-device paths (``DIST`` line): over a world-1 NCCL group in
+    this process, the sharded BA solve and GP step and the distributed
+    3DGS step, each against its single-device run; then two ranks on the
+    card over gloo through the CLIs (``dist_two_ranks``)."""
+    multihost.initialize(coordinator=f"localhost:{free_port()}",
+                         num_processes=1, process_id=0, device=device)
+    try:
+        backend = torch.distributed.get_backend()
+        ba_rec, ba_checks = dist_ba(device)
+        gp_rec_d, gp_checks = dist_gp(device, gt, gp_rec)
+        gs_rec, gs_checks = dist_gs(device, gs_root)
+    finally:
+        multihost.shutdown()
+    two_rec, two_checks = dist_two_ranks(pix_work, pix_gt, pix_rec)
+    rec = dict(backend=backend, world=1, ba=ba_rec, gp=gp_rec_d, gs=gs_rec,
+               two_ranks_gloo=two_rec, card=card_line())
+    log("DIST " + json.dumps(rec))
+    failed = [k for c in (ba_checks, gp_checks, gs_checks, two_checks)
+              for k, ok in c.items() if not ok]
+    if failed:
+        raise AssertionError(f"multi-device path failed: {failed}")
+    return rec
+
+
 def profile_ba_step(device):
     """Device time by kernel over one BA LM step at the main-path shape."""
     from torch.autograd import DeviceType
@@ -2637,7 +3044,7 @@ def kernel_entry(name, source, replaces, launches, case, **extra):
                 ["seconds"], **extra)
 
 
-def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
+def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec):
     main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
                      and c["dtype"] == "float32")
     f32_cases = [c for c in cases if c["dtype"] == "float32"]
@@ -2652,6 +3059,11 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
         max_abs_err_sfm_gp=sfm_rec["k1_max_abs_err_gp"],
         max_abs_err_sfm_ba=sfm_rec["k1_max_abs_err_ba"],
         launches_retri=retri_rec["k1_launches_retri"],
+        launches_dist_ba=dist_rec["ba"]["k1_launches"],
+        launches_dist_gp=dist_rec["gp"]["k1_launches"],
+        launches_dist_two_ranks=dist_rec["two_ranks_gloo"]["k1_launches"],
+        max_abs_err_dist_ba=dist_rec["ba"]["k1"]["max_abs_err"],
+        max_abs_err_dist_gp=dist_rec["gp"]["k1"]["max_abs_err"],
         launches_retri_by_pc=retri_rec["k1_launches_retri_by_pc"],
         max_abs_err_sfm_retri=retri_rec["k1_on_retri_pc2_input"]["max_abs_err"],
         retri_pc2_input={k: retri_rec["k1_on_retri_pc2_input"][k] for k in (
@@ -2665,7 +3077,8 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec):
                                      for c in f32_cases))
 
 
-def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec):
+def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
+              dist_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
     extra = {} if which == 0 else dict(
         max_rel_err_depth_loss=opts_rec["run_a"]["k3_depth_loss_max_rel_err"],
@@ -2690,6 +3103,8 @@ def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec):
         launches_gs_opts=opts_rec["run_a"][("k2_train", "k3_launches")[which]],
         launches_gs_mcmc=opts_rec["run_b"][("k2_launches",
                                             "k3_launches")[which]],
+        launches_dist=dist_rec["gs"][("k2_launches", "k3_launches")[which]],
+        max_rel_err_dist=dist_rec["gs"][("k2", "k3")[which]]["max_rel_err"],
         **extra)
 
 
@@ -2699,11 +3114,17 @@ def main(argv=None):
                     help="also profile one BA LM step, the mapper's "
                          "relative-pose stage and one 3DGS training step, "
                          "with and without the options (torch.profiler)")
+    ap.add_argument("--dist-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.dist_worker:
+        rank, port, work = args.dist_worker
+        dist_worker(int(rank), int(port), work)
+        return 0
     device = torch.device("cuda")
     # full-precision float32 products and convolutions (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2740,18 +3161,23 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
         sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)
         retri_rec = run_sfm_retri(device, dbpath, sfm_gt)
-    pix_rec = run_pixels(device)
-    run_feat(device)
-    run_learned(device)
-    if args.profile:
-        profile_ba_step(device)
-    with tempfile.TemporaryDirectory(prefix="gs_smoke_") as gs_root:
-        gs_rec, tiles = run_gs(device, gs_root, profile=args.profile)
-        opts_rec = run_gs_opts(device, gs_root, gs_rec, args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as pix_work:
+        pix_rec, pix_gt = run_pixels(device, pix_work)
+        run_feat(device)
+        run_learned(device)
+        if args.profile:
+            profile_ba_step(device)
+        with tempfile.TemporaryDirectory(prefix="gs_smoke_") as gs_root:
+            gs_rec, tiles = run_gs(device, gs_root, profile=args.profile)
+            opts_rec = run_gs_opts(device, gs_root, gs_rec, args.profile)
+            dist_rec = run_dist(device, gs_root, pix_work, pix_gt, pix_rec,
+                                gt, gp_rec)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
-    kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec)] + [
-        k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec)
+    kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec,
+                        dist_rec)] + [
+        k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec,
+                  dist_rec)
         for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -136,7 +136,7 @@ def old_pair(lib, W, V_inv, x, cam, pt, buckets):
 
 def old_matvec(lib):
     """The first port's Schur matvec, U_d x - (old kernel + camera sum)."""
-    def matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x):
+    def matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x, group=None):
         return block_lm._mv(U_d, x) - old_pair(
             lib, W.contiguous(), V_inv.contiguous(), x.contiguous(),
             cam_idx.contiguous(), pt_idx.contiguous(), buckets)

@@ -14,6 +14,8 @@ weights (``features/handler.py``).
 SCENE holds ``images/`` (or ``color/``); the database is written to
 ``SCENE/database.db``, and an existing database is left as it is.
 Extraction and matching run on ``--device`` (the card by default).
+Started as several processes (``parallel/multihost.py``), each extracts
+and matches a strided slice, and rank 0 writes the database.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ def main(argv=None):
     from instantsfm_tpu_torch.pipeline.data_reader import read_data
     from instantsfm_tpu_torch.utils.device import resolve_device
 
+    from instantsfm_tpu_torch.parallel import multihost
+    if multihost.initialize(device=args.device):
+        print(f"[distributed] process {multihost.process_index()}"
+              f"/{multihost.process_count()}")
     device = resolve_device(args.device)
     path_info = read_data(args.data_path)
     if path_info.database_exists:

@@ -8,8 +8,10 @@ SCENE holds ``images/`` and ``sparse/0``.  Runs train -> eval -> checkpoint
 (or eval only from ``--ckpt``), then ``--export_ply`` writes
 ``point_cloud.ply`` from the final checkpoint and ``--render_traj KIND``
 renders a trajectory (``videos/traj_KIND.mp4``, or ``.npz`` of the frames
-where imageio's mp4 writer is not installed).  ``--distributed`` is not
-ported and raises ``NotImplementedError`` naming its ROADMAP item.
+where imageio's mp4 writer is not installed).  ``--distributed``, started
+as several processes (one per card: torchrun, or ``ISFM_*``; see
+``parallel/multihost.py``), shards the gaussian pool over the ranks
+(``gs/distributed.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import sys
 
 from instantsfm_tpu_torch.gs.ply import export_ply_from_checkpoint
 from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+from instantsfm_tpu_torch.parallel import multihost
 
 
 def main(argv=None):
@@ -53,6 +56,10 @@ def main(argv=None):
                         help="gaussian-sharded rendering over all devices")
     args = parser.parse_args(argv)
 
+    if multihost.initialize(device=args.device):
+        print(f"[distributed] process {multihost.process_index()}"
+              f"/{multihost.process_count()}")
+
     cfg = GSConfig(
         data_dir=args.data_path,
         result_dir=args.result_dir or os.path.join(args.data_path, "gs_results"),
@@ -76,7 +83,7 @@ def main(argv=None):
         runner.train()
         runner.eval(runner.cfg.max_steps)
         ckpt = runner.save_checkpoint(runner.cfg.max_steps)
-        if args.export_ply:
+        if args.export_ply and multihost.process_index() == 0:
             out = os.path.join(cfg.result_dir, "point_cloud.ply")
             export_ply_from_checkpoint(ckpt, out)
             print(f"PLY exported to {out}")

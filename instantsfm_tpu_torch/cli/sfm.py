@@ -11,6 +11,13 @@ runs in float32 on the card, and in float64 on the CPU unless ``--f32``
 (as the JAX package's CLI: float64 only on its CPU backend).
 ``--enable_gui`` and ``--record_recon`` raise ``NotImplementedError``
 naming their ROADMAP item.
+
+Started as several processes (``ISFM_COORDINATOR`` /
+``ISFM_NUM_PROCESSES`` / ``ISFM_PROCESS_ID``, or torchrun; see
+``parallel/multihost.py``), every process runs the mapper, relative pose
+shares its chunks and the LM solves shard their points over the ranks;
+rank 0 alone writes the model (the JAX CLI writes it from every process,
+and on a shared path those writes race).
 """
 
 from __future__ import annotations
@@ -50,6 +57,10 @@ def main(argv=None):
     from instantsfm_tpu_torch.pipeline.writer import write_reconstruction
     from instantsfm_tpu_torch.utils.device import resolve_device
 
+    from instantsfm_tpu_torch.parallel import multihost
+    if multihost.initialize(device=args.device):
+        print(f"[distributed] process {multihost.process_index()}"
+              f"/{multihost.process_count()}")
     device = resolve_device(args.device)
     use_f64 = device.type == "cpu" and not args.f32
     dtype = torch.float64 if use_f64 else torch.float32
@@ -74,9 +85,10 @@ def main(argv=None):
         depths_available=depths_available, dtype=dtype, device=device)
     print(f"Reconstruction done in {time.time() - t0:.2f} seconds")
 
-    write_reconstruction(path_info.output_path, cameras, images, tracks,
-                         path_info.image_path, export_txt=args.export_txt)
-    print(f"Reconstruction written to {path_info.output_path}")
+    if multihost.process_index() == 0:
+        write_reconstruction(path_info.output_path, cameras, images, tracks,
+                             path_info.image_path, export_txt=args.export_txt)
+        print(f"Reconstruction written to {path_info.output_path}")
     return 0
 
 

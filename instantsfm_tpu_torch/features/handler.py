@@ -1,6 +1,6 @@
 """Feature handler: images -> COLMAP database.
 
-Counterpart of ``instantsfm_tpu/features/handler.py``, in one process:
+Counterpart of ``instantsfm_tpu/features/handler.py``:
 
 * ``sift_tpu`` (default): ``features/sift.py`` with the mutual-NN ratio
   matching of ``features/matching.py``;
@@ -22,6 +22,12 @@ and a ``two_view_geometries`` row (config 2, CALIBRATED) for each pair with
 at least ``min_num_matches`` matches; the mapper's own RANSAC verifies
 them.  The feature name is written as given, so either package reads the
 other's database.
+
+In a group of several processes (``parallel.multihost``) each process
+extracts a strided slice of the images, the padded (keypoints,
+descriptors, valid, size) arrays are all-gathered, each process matches a
+strided slice of the pairs (``match_pairs_distributed``, 2,048 matches a
+pair at most), and only rank 0 writes the database.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch import convert
-from instantsfm_tpu_torch.features import (dedode, disk, lightglue, matching,
-                                           sift, superpoint)
+from instantsfm_tpu_torch.features import (dedode, disk, lightglue, sift,
+                                           superpoint)
 from instantsfm_tpu_torch.io.colmap_db import ColmapDatabase
 from instantsfm_tpu_torch.io.image import imread, resize
+from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.scene import cameras as cam_models
 from instantsfm_tpu_torch.scene.types import CONFIG_CALIBRATED
 from instantsfm_tpu_torch.utils.device import resolve_device
@@ -133,7 +140,8 @@ def generate_database(image_path: str, database_path: str,
     and write the database.  ``sequential_overlap`` > 0 matches each image
     with the next ``sequential_overlap`` only.  Returns the run's counts
     and host seconds (after a device sync) of extraction, matching and
-    writing; ``None`` for the ``colmap`` passthrough."""
+    writing (on rank 0; ``None`` on the other ranks of a process group and
+    for the ``colmap`` passthrough)."""
     if feature_name == "colmap":
         # passthrough to an installed COLMAP binary
         import shutil
@@ -179,9 +187,13 @@ def generate_database(image_path: str, database_path: str,
                        0.95 if learned else 0.85)
 
     t0 = time.time()
+    n_proc = multihost.process_count()
+    if len(names) < n_proc:
+        raise ValueError(f"{len(names)} images for {n_proc} processes")
+    mine = multihost.local_pair_slice(len(names))
     kps, descs, valids, sizes = [], [], [], []
-    for name in names:
-        img, scale, size = load_gray(os.path.join(image_path, name),
+    for i in mine:
+        img, scale, size = load_gray(os.path.join(image_path, names[i]),
                                      max_image_size, rgb=rgb)
         xy, _, d, v = extract(img)
         kps.append((xy / scale).astype(np.float32))
@@ -189,8 +201,18 @@ def generate_database(image_path: str, database_path: str,
         valids.append(v)
         sizes.append(size)
     sync()
+    if n_proc > 1:
+        # every slot is padded to max_keypoints, so the arrays stack
+        def gather(local, fill=0):
+            return list(multihost.gather_pair_results(
+                mine, np.stack(local), len(names), fill=fill))
+        kps, descs = gather(kps), gather(descs)
+        valids = gather(valids, fill=False)
+        sizes = [tuple(int(x) for x in sz) for sz in
+                 gather([np.asarray(sz, np.int64) for sz in sizes])]
     extract_s = time.time() - t0
-    log(f"Feature extraction done in {extract_s:.1f}s ({len(names)} images)")
+    log(f"Feature extraction done in {extract_s:.1f}s ({len(names)} images, "
+        f"{n_proc} process(es))")
 
     n = len(names)
     if sequential_overlap > 0:
@@ -199,19 +221,22 @@ def generate_database(image_path: str, database_path: str,
     else:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     t1 = time.time()
+    exchange_cap = 2048   # matches a pair at most: the exchange's capacity
+    matcher_fn = None
     if lg_net is not None:
         # per-image sizes: each image's own keypoint normalization
-        all_matches = lightglue.match_all_pairs(
+        matcher_fn = lambda ps: lightglue.match_all_pairs(
             kps, descs, valids, np.asarray(sizes, np.float32), lg_net,
-            pairs=pairs, cfg=lightglue.LightGlueConfig(max_matches=2048),
+            pairs=ps, cfg=lightglue.LightGlueConfig(max_matches=exchange_cap),
             device=dev)
-    else:
-        all_matches = matching.match_all_pairs(
-            descs, valids, ratio=match_ratio, max_matches=2048, pairs=pairs,
-            device=dev)
+    all_matches = multihost.match_pairs_distributed(
+        descs, valids, pairs, ratio=match_ratio, max_matches=exchange_cap,
+        matcher_fn=matcher_fn, device=dev)
     sync()
     match_s = time.time() - t1
     log(f"Matching done in {match_s:.1f}s ({len(all_matches)} pairs)")
+    if multihost.process_index() != 0:
+        return None        # one writer: the database is a host artifact
 
     t2 = time.time()
     w0, h0 = sizes[0]

@@ -11,9 +11,18 @@ at step milestones, PNG compression there; npz checkpoints; trajectory
 renders.  A batch of views is a loop over views whose losses are averaged
 before one backward pass.
 
-``distributed`` (gaussian-sharded rendering over several devices) is not
-ported: it raises ``NotImplementedError`` naming its ROADMAP item (queue 1
-item 6).
+``distributed`` shards the pool over the ranks of the default process
+group (``gs/distributed.py``; one process per card) where there are
+several ranks, the batch size divides by their number, every image has
+one size, and none of pose_opt, app_opt, the bilateral grid, the depth
+loss and random_bkgd is on; otherwise it logs JAX's "ignored" line and
+trains on one device.  Refinement and the MCMC relocation choose slots
+among every row of the pool, so they run on the whole pool, gathered on
+every rank with its Adam moments and strategy state, with the same draws
+on every rank; each rank keeps its own rows (``distributed.run_on_pool``).
+Opacity resets and the MCMC noise are row by row and stay on the shard.
+Eval, checkpoints, compression and trajectories gather the pool; rank 0
+writes the files and the scalar log.
 """
 
 from __future__ import annotations
@@ -27,13 +36,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from instantsfm_tpu_torch.gs import (bilateral, camera_opt, data as data_mod,
+                                     distributed as dist_mod,
                                      optim as optim_mod,
                                      rasterize as raster_mod,
                                      splats as splats_mod, ssim as ssim_mod,
                                      strategy as strat_mod)
 from instantsfm_tpu_torch.gs.splats import FIELDS, FLOAT_FIELDS
+from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.utils.device import full_f32, resolve_device
 from instantsfm_tpu_torch.utils.scalars import ScalarLogger
 
@@ -94,15 +106,19 @@ class GSConfig:
     compression: Optional[str] = None  # "png" -> compress at eval steps
 
 
-# option -> the JAX module it needs, still to port (ROADMAP queue 1 item 6)
-NOT_PORTED = {"distributed": "gs/distributed.py"}
 MAX_DEPTH_PTS = 2048       # depth-supervision points per view, padded
 
 
-def not_ported(what: str, module: str):
-    return NotImplementedError(
-        f"{what} is not ported to instantsfm_tpu_torch yet: it needs "
-        f"{module} (ROADMAP.md queue 1 item 6)")
+class _NoLog:
+    """The scalar log of ranks other than 0: rank 0 writes the stream."""
+
+    def add_scalar(self, *a):
+        pass
+
+    add_image = add_scalar
+
+    def flush(self):
+        pass
 
 
 def _write_video(path_stem: str, frames, fps: int) -> str:
@@ -120,9 +136,6 @@ def _write_video(path_stem: str, frames, fps: int) -> str:
 
 class Runner:
     def __init__(self, cfg: GSConfig, log=print, device="cuda"):
-        for name, module in NOT_PORTED.items():
-            if getattr(cfg, name):
-                raise not_ported(f"GSConfig.{name}", module)
         if cfg.strategy not in ("default", "mcmc"):
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
         if cfg.compression not in (None, "png"):
@@ -176,6 +189,26 @@ class Runner:
             pts, rgb, capacity, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale_mult=cfg.init_scale,
             device=self.device)
+        self.world, self.rank = 1, 0     # ranks the pool is sharded over
+        if cfg.distributed:
+            D = multihost.process_count()
+            unsupported = (cfg.pose_opt or cfg.app_opt
+                           or cfg.use_bilateral_grid or cfg.depth_loss
+                           or cfg.random_bkgd)
+            uniform = (len(set(map(int, self.parser.widths))) == 1
+                       and len(set(map(int, self.parser.heights))) == 1)
+            if D > 1 and cfg.batch_size % D == 0 and not unsupported \
+                    and uniform:
+                self.world, self.rank = D, multihost.process_index()
+                self.splats = dist_mod.shard_splats(
+                    dist_mod.pad_splats(self.splats, D), self.rank, D)
+                capacity = self.splats.means.shape[0]
+                log(f"distributed rendering over {D} ranks (pool "
+                    f"{capacity * D}, batch {cfg.batch_size})")
+            else:
+                log("distributed=True ignored: needs >1 rank, "
+                    "batch_size % D == 0, uniform image sizes, and no "
+                    "pose/app/bilgrid/depth/random_bkgd options")
         for f in FLOAT_FIELDS:
             getattr(self.splats, f).requires_grad_(True)
         self.optimizer = splats_mod.make_optimizer(
@@ -216,7 +249,19 @@ class Runner:
         self.refines = []       # one record per refine: step, counts
         self.relocations = []   # one record per MCMC relocation: step, moved
         self.step_s = []        # host seconds of each step after data loading
-        self.writer = ScalarLogger(os.path.join(cfg.result_dir, "tb"))
+        self.writer = ScalarLogger(os.path.join(cfg.result_dir, "tb")) \
+            if self.rank == 0 else _NoLog()
+        self._dist_step = None
+        if self.world > 1:
+            W, H = int(self.parser.widths[0]), int(self.parser.heights[0])
+            if cfg.patch_size:
+                W, H = min(W, cfg.patch_size), min(H, cfg.patch_size)
+            self._dist_step = dist_mod.make_distributed_train_step(
+                self.optimizer, W, H, ssim_lambda=cfg.ssim_lambda,
+                tiles_per_gauss=cfg.tiles_per_gauss,
+                tile_capacity=cfg.tile_capacity, opacity_reg=cfg.opacity_reg,
+                scale_reg=cfg.scale_reg, camera_model=cfg.camera_model,
+                optimizer_step=self._optimizer_step)
 
     # ------------------------------------------------------------ rendering
 
@@ -275,6 +320,18 @@ class Runner:
         backward pass, one Adam update.  Returns (loss, l1, ssim, probe
         gradient [N, 2], radii [N] max over views, seen [N])."""
         splats = self.splats
+        if self._dist_step is not None:
+            D = self.world
+            b = len(views) // D
+            mine = views[self.rank * b:(self.rank + 1) * b]
+            batch = {"camtoworld": torch.stack([v["camtoworld"]
+                                                for v in views]),
+                     "K": torch.stack([v["K"] for v in views]),
+                     "image": torch.stack([v["image"] for v in mine])}
+            loss, g_offset, radii, seen = self._dist_step(splats, batch,
+                                                          sh_degree)
+            # the distributed step reports the loss alone, as in JAX
+            return loss, loss, loss, g_offset, radii, seen
         offset = torch.zeros((splats.means.shape[0], 2), device=self.device,
                              dtype=splats.means.dtype, requires_grad=True)
         results = [self._loss(splats, v, offset, sh_degree) for v in views]
@@ -283,7 +340,7 @@ class Runner:
         for opt in optimizers:
             opt.zero_grad(set_to_none=True)
         loss.backward()
-        for opt in optimizers:
+        for opt in self.aux_opt.values():
             for group in opt.param_groups:
                 for p in group["params"]:
                     # optax steps every parameter each update, with a zero
@@ -294,17 +351,26 @@ class Runner:
         outs = [r[1][0] for r in results]
         radii = torch.stack([o.radii for o in outs]).amax(0)
         seen = torch.stack([o.valid for o in outs]).any(0)
+        self._optimizer_step(seen)
+        for opt in self.aux_opt.values():
+            opt.step()
+        l1 = torch.stack([r[1][1] for r in results]).mean()
+        s = torch.stack([r[1][2] for r in results]).mean()
+        return loss.detach(), l1.detach(), s.detach(), offset.grad, radii, seen
+
+    def _optimizer_step(self, seen):
+        """The splats' Adam update (selective where ``visible_adam``) at
+        this update's learning rates."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:      # as optax: a zero gradient
+                    p.grad = torch.zeros_like(p)
         splats_mod.set_lr(self.optimizer, self.n_updates)
         if self.cfg.visible_adam:
             optim_mod.selective_step(self.optimizer, seen)
         else:
             self.optimizer.step()
-        for opt in self.aux_opt.values():
-            opt.step()
         self.n_updates += 1
-        l1 = torch.stack([r[1][1] for r in results]).mean()
-        s = torch.stack([r[1][2] for r in results]).mean()
-        return loss.detach(), l1.detach(), s.detach(), offset.grad, radii, seen
 
     def _views(self, rng):
         cfg = self.cfg
@@ -373,8 +439,10 @@ class Runner:
                     from instantsfm_tpu_torch.gs import compression
                     cdir = os.path.join(cfg.result_dir, "compression",
                                         f"step{step + 1}")
-                    compression.compress_splats(self.splats, cdir)
-                    self.log(f"compressed model written to {cdir}")
+                    pool = self.pool()
+                    if self.rank == 0:
+                        compression.compress_splats(pool, cdir)
+                        self.log(f"compressed model written to {cdir}")
             if step + 1 in cfg.save_steps:
                 self.save_checkpoint(step + 1)
         self.log(f"training done in {time.time() - t_start:.1f}s")
@@ -388,13 +456,29 @@ class Runner:
             self.strategy_state, g_offset, radii, valid)
         if (sc.refine_start_iter <= step < sc.refine_stop_iter
                 and step % sc.refine_every == 0 and step > 0):
-            alive_before = int(self.splats.alive.sum())
-            self.splats, self.strategy_state, n_grow, n_prune = \
-                strat_mod.refine(self.splats, self.optimizer,
-                                 self.strategy_state, self.scene_scale,
-                                 sc, prune_too_big=step > sc.reset_every,
-                                 generator=self.generator)
-            alive = int(self.splats.alive.sum())
+            def refine(splats, optimizer, state):
+                before = int(splats.alive.sum())
+                out = strat_mod.refine(
+                    splats, optimizer, state, self.scene_scale, sc,
+                    prune_too_big=step > sc.reset_every,
+                    generator=self.generator)
+                return out + (before, int(splats.alive.sum()))
+
+            if self.world > 1:
+                # every row of the pool competes for the dead slots
+                state = strat_mod.StrategyState(*(
+                    dist_mod.gather_rows(a) for a in self.strategy_state))
+                _, state, n_grow, n_prune, alive_before, alive = \
+                    dist_mod.run_on_pool(
+                        self.splats, self.optimizer,
+                        lambda pool, opt: refine(pool, opt, state))
+                n = self.splats.means.shape[0]
+                self.strategy_state = strat_mod.StrategyState(*(
+                    a[self.rank * n:(self.rank + 1) * n] for a in state))
+            else:
+                self.splats, self.strategy_state, n_grow, n_prune, \
+                    alive_before, alive = refine(
+                        self.splats, self.optimizer, self.strategy_state)
             self.refines.append(dict(step=step, grown=n_grow, pruned=n_prune,
                                      alive_before=alive_before,
                                      alive_after=alive))
@@ -410,11 +494,38 @@ class Runner:
         mc = self.mcmc_cfg
         if (mc.refine_start_iter <= step < mc.refine_stop_iter
                 and step % mc.refine_every == 0 and step > 0):
-            moved = strat_mod.mcmc_relocate(self.splats, self.optimizer,
-                                            mc.min_opacity, self.generator)
+            relocate = lambda splats, opt: strat_mod.mcmc_relocate(
+                splats, opt, mc.min_opacity, self.generator)
+            if self.world > 1:
+                moved = dist_mod.run_on_pool(self.splats, self.optimizer,
+                                             relocate)
+            else:
+                moved = relocate(self.splats, self.optimizer)
             self.relocations.append(dict(step=step, moved=moved))
+        noise = None
+        if self.world > 1:
+            # the pool's draws, as on one device; this rank's rows
+            n = self.splats.means.shape[0]
+            noise = torch.randn((n * self.world, 3), generator=self.generator,
+                                device=self.device,
+                                dtype=self.splats.means.dtype)
+            noise = noise[self.rank * n:(self.rank + 1) * n]
         strat_mod.mcmc_noise(self.splats, 1.6e-4 * self.scene_scale,
-                             mc.noise_lr, self.generator)
+                             mc.noise_lr, self.generator, noise=noise)
+
+    def pool(self):
+        """The whole splat pool: the rank's shards gathered (a copy, on
+        every rank) where it is sharded, else the pool itself."""
+        if self.world > 1:
+            return dist_mod.gather_splats(self.splats)
+        return self.splats
+
+    def num_alive(self) -> int:
+        """Alive gaussians in the whole pool."""
+        n = self.splats.alive.sum()
+        if self.world > 1:
+            dist.all_reduce(n)
+        return int(n)
 
     def _log_scalars(self, step, loss, l1, s, views, sh_degree):
         """Scalar stream (reference tb cadence, gsplat_trainer.py:708-723)."""
@@ -422,7 +533,7 @@ class Runner:
         w.add_scalar("train/loss", float(loss), step)
         w.add_scalar("train/l1loss", float(l1), step)
         w.add_scalar("train/ssimloss", float(s), step)
-        w.add_scalar("train/num_GS", int(self.splats.alive.sum()), step)
+        w.add_scalar("train/num_GS", self.num_alive(), step)
         if self.device.type == "cuda":
             w.add_scalar("train/mem", torch.cuda.memory_allocated(self.device)
                          / 1024 ** 3, step)
@@ -430,7 +541,7 @@ class Runner:
             v = views[0]
             H, W = v["image"].shape[:2]
             with torch.no_grad():
-                out = self._render(self.splats, v["camtoworld"], v["K"], W, H,
+                out = self._render(self.pool(), v["camtoworld"], v["K"], W, H,
                                    sh_degree, v["image_id"], None,
                                    torch.zeros(3, device=self.device))
             canvas = torch.cat([v["image"], torch.clamp(out.rgb, 0, 1)], 1)
@@ -443,18 +554,20 @@ class Runner:
     def eval(self, step: int):
         """PSNR and SSIM over the val split, and LPIPS where its weights
         file is present (``lpips.default_weights_path``); the val views are
-        pose-adjusted by their image ids, as in JAX."""
+        pose-adjusted by their image ids, as in JAX.  A sharded pool is
+        gathered and every rank evaluates it; rank 0 writes the stats."""
         from instantsfm_tpu_torch import convert
         from instantsfm_tpu_torch.gs import lpips as lpips_mod
 
         cfg = self.cfg
+        pool = self.pool()
         w = lpips_mod.try_load_default()
         net = None if w is None else convert.lpips_from_numpy(w, self.device)
         psnrs, ssims, lpipss = [], [], []
         for i in range(len(self.valset)):
             b = self.valset[i]
             H, W = b["image"].shape[:2]
-            out = self._render(self.splats, self._tensor(b["camtoworld"]),
+            out = self._render(pool, self._tensor(b["camtoworld"]),
                                self._tensor(b["K"]), W, H, cfg.sh_degree,
                                b["image_id"], None,
                                torch.zeros(3, device=self.device))
@@ -467,10 +580,12 @@ class Runner:
                     lpipss.append(float(net(rgb, gt)))
         stats = {"psnr": float(np.mean(psnrs)) if psnrs else 0.0,
                  "ssim": float(np.mean(ssims)) if ssims else 0.0,
-                 "num_GS": int(self.splats.alive.sum())}
+                 "num_GS": int(pool.alive.sum())}
         if lpipss:
             stats["lpips"] = float(np.mean(lpipss))
         self.stats[step] = stats
+        if self.rank:
+            return stats
         self.log(f"eval @ {step}: {stats}")
         for k, v in stats.items():
             self.writer.add_scalar(f"val/{k}", v, step)
@@ -482,26 +597,33 @@ class Runner:
         return stats
 
     def save_checkpoint(self, step: int):
+        """The whole pool as ``ckpts/ckpt_{step}.npz`` (written by rank 0;
+        every rank returns its path)."""
         ckpt_dir = os.path.join(self.cfg.result_dir, "ckpts")
-        os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
-        np.savez(path, step=step,
-                 **{f: getattr(self.splats, f).detach().cpu().numpy()
-                    for f in FIELDS})
-        self.log(f"checkpoint saved: {path}")
+        pool = self.pool()
+        if self.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            np.savez(path, step=step,
+                     **{f: getattr(pool, f).detach().cpu().numpy()
+                        for f in FIELDS})
+            self.log(f"checkpoint saved: {path}")
         return path
 
     @torch.no_grad()
     def load_checkpoint(self, path: str):
-        """Copy a checkpoint's fields into the pool (same capacity), in
-        place, so the optimizer keeps its parameters."""
+        """Copy a checkpoint's fields into the pool (same capacity; a
+        sharded pool takes its rank's rows), in place, so the optimizer
+        keeps its parameters."""
         z = np.load(path)
         for f in FIELDS:
             dst = getattr(self.splats, f)
-            if tuple(z[f].shape) != tuple(dst.shape):
+            n = dst.shape[0]
+            want = (n * self.world,) + tuple(dst.shape[1:])
+            if tuple(z[f].shape) != want:
                 raise ValueError(f"checkpoint {f} has shape {z[f].shape}, "
-                                 f"the pool {tuple(dst.shape)}")
-            dst.copy_(torch.as_tensor(z[f]))
+                                 f"the pool {want}")
+            dst.copy_(torch.as_tensor(z[f][self.rank * n:(self.rank + 1) * n]))
         return int(z["step"])
 
     @torch.no_grad()
@@ -510,9 +632,14 @@ class Runner:
         """Render ``n_frames`` along an interpolated, ellipse or spiral path
         through the training cameras (first camera's K and size, image 0's
         pose delta, as in JAX); writes ``videos/traj_{kind}.mp4``, or an npz
-        of the frames where imageio's mp4 writer is not installed."""
+        of the frames where imageio's mp4 writer is not installed.  A
+        sharded pool is gathered and rank 0 renders (the others return
+        None)."""
         from instantsfm_tpu_torch.gs import traj as traj_mod
 
+        pool = self.pool()
+        if self.rank:
+            return None
         c2w = self.parser.camtoworlds
         if kind == "interp":
             sub = c2w[::max(len(c2w) // 10, 1)]
@@ -526,7 +653,7 @@ class Runner:
         W, H = int(self.parser.widths[0]), int(self.parser.heights[0])
         frames = []
         for M in path[:n_frames]:
-            out = self._render(self.splats, self._tensor(M), K, W, H,
+            out = self._render(pool, self._tensor(M), K, W, H,
                                self.cfg.sh_degree, 0, None,
                                torch.zeros(3, device=self.device))
             frames.append((torch.clamp(out.rgb, 0, 1) * 255).to(torch.uint8)

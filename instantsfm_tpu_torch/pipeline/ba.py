@@ -1,12 +1,15 @@
 """Bundle adjustment stage on torch tensors.
 
-Counterpart of ``instantsfm_tpu/pipeline/ba.py`` (its single-device path):
-pack the scene into flat blocks, bucketize the tracks, run the block LM
-engine; per-image camera blocks = [pose (6-dof tangent) ++ optimizable
-intrinsics], principal point frozen, Huber loss.  ``bundle_adjustment_rounds``
-ships the observations to the device once and runs the inter-round filters
+Counterpart of ``instantsfm_tpu/pipeline/ba.py``: pack the scene into flat
+blocks and solve with ``parallel.sharded.optimize_auto`` (bucketed tracks,
+on one device or point-local over every rank of a process group); per-image
+camera blocks = [pose (6-dof tangent) ++ optimizable intrinsics], principal
+point frozen, Huber loss.  On one device ``bundle_adjustment_rounds`` ships
+the observations to the device once and runs the inter-round filters
 (cheirality, track length, normalized reprojection with a per-round
-threshold) as valid-mask updates on the device.
+threshold) as valid-mask updates on the device; over several ranks it runs
+JAX's per-round loop: ``bundle_adjustment``, undistortion and the
+normalized reprojection filter on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.math import lie
+from instantsfm_tpu_torch.parallel.sharded import optimize_auto, shard_world
 from instantsfm_tpu_torch.scene import cameras as cam_models
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
 from instantsfm_tpu_torch.solve import robust
@@ -94,17 +98,14 @@ def bundle_adjustment(cameras: Cameras, images: Images, tracks: Tracks,
 
     problem = make_ba_problem(model_id, optimize_poses=optimize_poses)
     kernel = robust.huber(float(opts["thres_loss_function"]))
-    with span("ba bucketize"):
-        params_b, obs_b, buckets, point_slots = bucketize_problem(params, obs)
     with span("ba optimize"):
-        state, history = optimize(problem, kernel, _lm_config(opts), params_b,
-                                  obs_b, verbose=verbose or _dbg.ENABLED,
-                                  buckets=buckets, device=dev)
+        cam, pts, history = optimize_auto(
+            problem, kernel, _lm_config(opts), params, obs,
+            verbose=verbose or _dbg.ENABLED, device=dev)
     _dbg.stat_add("ba_lm_iters", len(history))
 
-    _write_back(cameras, images, u_img, state.params.cam)
-    tracks.xyz[u_trk] = state.params.pts.detach().cpu().numpy()[
-        point_slots].astype(np.float64)
+    _write_back(cameras, images, u_img, cam)
+    tracks.xyz[u_trk] = pts.detach().cpu().numpy().astype(np.float64)
 
 
 def _pre_mask(cam, pts, obs, base_valid, min_view: int, buckets):
@@ -139,6 +140,15 @@ def bundle_adjustment_rounds(cameras: Cameras, images: Images, tracks: Tracks,
     Updates cameras/images/track points in place and returns the
     reprojection-filtered tracks."""
     dev = resolve_device(device)
+    if shard_world() > 1:
+        from instantsfm_tpu_torch.pipeline import relpose, track_filters
+        for r in range(rounds):
+            bundle_adjustment(cameras, images, tracks, opts, dtype=dtype,
+                              device=dev, verbose=verbose)
+            relpose.undistort_images(cameras, images, device=dev)
+            tracks = track_filters.filter_tracks_by_reprojection_normalized(
+                cameras, images, tracks, max_reproj_error * max(1, rounds - r))
+        return tracks
     model_id = cameras.uniform_model_id
     optimize_poses = bool(opts.get("optimize_poses", True))
     min_view = int(opts["min_num_view_per_track"])

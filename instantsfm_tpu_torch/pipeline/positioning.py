@@ -18,9 +18,9 @@ scale blocks eliminated, so every PCG matvec goes through K1
   moving-window ftol 5e-4.
 
 The spanning-tree init (``opts["init"] == "tree"``) is opt-in, as in the
-JAX package, where it was measured negative.  The JAX multi-device solve
-(``parallel.sharded.optimize_auto``) is ROADMAP queue 1 item 6 here, so the
-solve is the single-device ``optimize``.
+JAX package, where it was measured negative.  The solve goes through
+``parallel.sharded.optimize_auto``: one device, or the point-local solve
+over every rank of a process group.
 """
 
 from __future__ import annotations
@@ -31,9 +31,8 @@ import torch
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
 from instantsfm_tpu_torch.solve import robust
-from instantsfm_tpu_torch.solve.block_lm import (LMConfig, Observations,
-                                                 Params, optimize)
-from instantsfm_tpu_torch.solve.blocked import bucketize_problem
+from instantsfm_tpu_torch.parallel.sharded import optimize_auto
+from instantsfm_tpu_torch.solve.block_lm import LMConfig, Observations, Params
 from instantsfm_tpu_torch.solve.problems import make_gp_problem
 from instantsfm_tpu_torch.utils import debug as _dbg
 from instantsfm_tpu_torch.utils.debug import span
@@ -198,18 +197,15 @@ def global_positioning(cameras: Cameras, images: Images, tracks: Tracks,
                    radius_init=1e3, radius_max=1e8)
     kernel = robust.huber(float(opts["thres_loss_function"]))
 
-    with span("gp bucketize"):
-        params_b, obs_b, buckets, point_slots = bucketize_problem(params, obs)
     with span("gp optimize"):
-        state, history = optimize(make_gp_problem(), kernel, cfg, params_b,
-                                  obs_b, verbose=verbose or _dbg.ENABLED,
-                                  buckets=buckets, device=dev)
+        cam, pts, history = optimize_auto(
+            make_gp_problem(), kernel, cfg, params, obs,
+            verbose=verbose or _dbg.ENABLED, device=dev)
     _dbg.stat_add("gp_lm_iters", len(history))
 
     # ---- write back (t = -R c)
-    new_centers = state.params.cam["c"].detach().cpu().numpy().astype(np.float64)
+    new_centers = cam["c"].detach().cpu().numpy().astype(np.float64)
     images.tvec[reg_idx] = -lie.quat_rotate_np(images.qvec[reg_idx],
                                                new_centers)
-    tracks.xyz = state.params.pts.detach().cpu().numpy()[point_slots] \
-        .astype(np.float64)
+    tracks.xyz = pts.detach().cpu().numpy().astype(np.float64)
     return tracks

@@ -17,8 +17,10 @@ Random draws.  Each RANSAC core takes its uniforms ``u [P, H, k]`` as an
 argument.  Pairs are grouped by ``_bucket`` of their match count and cut
 into chunks of ``chunk_pairs`` (the JAX package's schedule); chunk k draws
 ``u`` for E of shape [chunk_pairs, H, k] (padded pairs included), then F's
-and H's for its uncalibrated and planar pairs.  By default the draws come
-from one CPU ``torch.Generator`` seeded by ``seed``, moved to the device;
+and H's for its uncalibrated and planar pairs.  By default each (chunk,
+model) draws from its own CPU ``torch.Generator``, seeded from ``seed``,
+the chunk and the model, and moved to the device, so that a chunk's draws
+do not depend on which process computes it or on the chunks before it;
 ``uniforms(chunk, model, shape)`` replaces them (model "E", "F" or "H"),
 e.g. with the JAX package's own draws.
 
@@ -30,9 +32,14 @@ match).  Ties go to the lowest candidate index, as ``jnp.argmax`` and
 Only the real pairs of a chunk are computed: every pair's estimate depends
 on its own matches and draws alone.
 
-The multi-process exchange of the JAX package waits for ROADMAP queue 1
-item 6 (multi-GPU): in a process group of more than one process the stage
-raises.
+In a group of several processes each process estimates the chunks it
+owns (chunk k belongs to rank k mod the process count); each chunk's
+owner then sends its [P, 34] float64 estimates (E, q, t, F, H) and its
+[P, M/8] uint8 mask bits to every process over the host group
+(``parallel.multihost``), and every process writes every chunk back.  The
+JAX package exchanges E, q and t only, so there F and H stay on the
+process that estimated them; here every process ends with the same view
+graph.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.math import epipolar, fivepoint, lie
+from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.scene import cameras as cam_models
 from instantsfm_tpu_torch.scene.types import (CONFIG_CALIBRATED, CONFIG_PANORAMIC,
                                               CONFIG_PLANAR,
@@ -222,14 +230,18 @@ def _bucket(n, buckets=(256, 1024, 4096, 16384)):
 
 
 class _Uniforms:
-    """Default RANSAC draws: one CPU generator seeded by ``seed``, float64,
-    moved to the device."""
+    """Default RANSAC draws, float64: a CPU generator for each (chunk,
+    model), seeded from (``seed``, chunk, model)."""
 
     def __init__(self, seed: int):
-        self.gen = torch.Generator().manual_seed(int(seed))
+        self.seed = int(seed)
 
     def __call__(self, chunk: int, model: str, shape):
-        return torch.rand(shape, generator=self.gen, dtype=torch.float64)
+        state = np.random.SeedSequence(
+            [self.seed, int(chunk), "EFH".index(model)]).generate_state(
+            1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(state))
+        return torch.rand(shape, generator=gen, dtype=torch.float64)
 
 
 def estimate_relative_pose(view_graph: ViewGraph, cameras: Cameras,
@@ -248,11 +260,6 @@ def estimate_relative_pose(view_graph: ViewGraph, cameras: Cameras,
     ``num_hyps`` budget.  ``uniforms`` (see the module docstring) replaces
     the default draws."""
     dev = resolve_device(device)
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "estimate_relative_pose: the multi-process chunk exchange is not "
-            "ported yet (ROADMAP queue 1, item 6)")
     if images.kp_bearing is None:
         undistort_images(cameras, images, device=dev)
     draw = uniforms if uniforms is not None else _Uniforms(seed)
@@ -284,17 +291,48 @@ def estimate_relative_pose(view_graph: ViewGraph, cameras: Cameras,
               for M, rows in sorted(groups.items())
               for lo in range(0, len(rows), chunk_pairs)]
 
+    n_proc, rank = multihost.process_count(), multihost.process_index()
     pending = []
     for k, (M, rows) in enumerate(chunks):
+        if k % n_proc != rank:
+            pending.append(None)             # another process owns it
+            continue
         with span(f"relpose chunk P={len(rows)} M={M}"):
             pending.append(_process_chunk(
                 view_graph, rows, M, k, draw, dtype, dev, chunk_pairs,
                 num_hyps, five_point, num_hyps_minimal,
                 (tab, matches, match_offset, kp_base_i, kp_base_j)))
-    # every chunk is queued before the first readback
-    for rows, E, q, t, mask in pending:
-        _writeback_chunk(view_graph, rows, E.cpu().numpy(), q.cpu().numpy(),
-                         t.cpu().numpy(), mask.cpu().numpy())
+    if n_proc == 1:
+        # every chunk is queued before the first readback
+        for rows, E, q, t, mask in pending:
+            _writeback_chunk(view_graph, rows, E.cpu().numpy(),
+                             q.cpu().numpy(), t.cpu().numpy(),
+                             mask.cpu().numpy())
+        return
+
+    # exchange: each chunk's owner sends its estimates and mask bits to
+    # every process, and every process writes every chunk back
+    for k, (M, rows) in enumerate(chunks):
+        P = len(rows)
+        flat = np.zeros((P, 34))
+        bits = np.zeros((P, -(-M // 8)), np.uint8)
+        if pending[k] is not None:
+            _, E, q, t, mask = pending[k]
+            flat = np.concatenate([
+                E.double().cpu().numpy().reshape(P, 9),
+                q.double().cpu().numpy(), t.double().cpu().numpy(),
+                view_graph.F_mat[rows].reshape(P, 9),
+                view_graph.H_mat[rows].reshape(P, 9)], axis=1)
+            bits = np.packbits(mask.cpu().numpy(), axis=1, bitorder="little")
+        owner = k % n_proc
+        flat = multihost.allgather_host_arrays(flat)[owner]
+        bits = multihost.allgather_host_arrays(bits)[owner]
+        mask = np.unpackbits(bits, axis=1, bitorder="little",
+                             count=M).astype(bool)
+        view_graph.F_mat[rows] = flat[:, 16:25].reshape(P, 3, 3)
+        view_graph.H_mat[rows] = flat[:, 25:34].reshape(P, 3, 3)
+        _writeback_chunk(view_graph, rows, flat[:, :9].reshape(P, 3, 3),
+                         flat[:, 9:13], flat[:, 13:16], mask)
 
 
 def _draw(draw, k, model, shape, n, dev):

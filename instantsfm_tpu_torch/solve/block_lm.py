@@ -19,6 +19,16 @@ Counterpart of ``instantsfm_tpu/solve/block_lm.py`` (its row-major path):
 Host synchronisations per LM step: one per PCG iteration plus one per PCG
 solve (the CG stop test), one per damped try (the accept test), and one per
 ``optimize`` iteration (the history readback).
+
+Across processes (``parallel/sharded.py``) each rank holds a slice of the
+observations and ``group`` is the process group, the counterpart of JAX's
+``axis_name``: every reduction over observations into camera space or into
+a scalar is all-reduced there (``_ar``), so the camera system, the PCG
+vectors and every scalar the host tests are the same on every rank and
+every rank takes the same branch.  With the points sharded with their
+observations (point-local, the default) the point-side sums stay on the
+rank; with ``replicated_points`` every rank holds all points and the
+point-side sums are all-reduced too, and the matvec runs its plain chain.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
 from instantsfm_tpu_torch.solve import robust as robust_mod
@@ -84,6 +95,14 @@ class NormalSystem(NamedTuple):
     loss_vec: torch.Tensor  # [O] per-observation robust loss (valid-masked)
 
 
+def _ar(x, group):
+    """Sum ``x`` over the ranks of ``group`` (in place); ``x`` where
+    ``group`` is None."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
 def _num_cams(params: Params) -> int:
     return next(iter(params.cam.values())).shape[0]
 
@@ -137,16 +156,18 @@ def compute_loss_vec(problem: BlockProblem, params: Params,
 
 
 def compute_cost(problem: BlockProblem, params: Params, obs: Observations,
-                 kernel: robust_mod.RobustKernel,
-                 buckets: tuple = ()) -> torch.Tensor:
-    """Robust cost sum_o rho(||r_o||^2) over valid observations."""
-    return torch.sum(compute_loss_vec(problem, params, obs, kernel,
-                                      buckets=buckets))
+                 kernel: robust_mod.RobustKernel, buckets: tuple = (),
+                 group=None) -> torch.Tensor:
+    """Robust cost sum_o rho(||r_o||^2) over valid observations (of every
+    rank of ``group``)."""
+    return _ar(torch.sum(compute_loss_vec(problem, params, obs, kernel,
+                                          buckets=buckets)), group)
 
 
 def build_system(problem: BlockProblem, params: Params, obs: Observations,
                  kernel: robust_mod.RobustKernel, num_points: int,
-                 buckets: tuple = ()) -> NormalSystem:
+                 buckets: tuple = (), group=None,
+                 replicated_points: bool = False) -> NormalSystem:
     """Evaluate residuals + per-block Jacobians, apply robust whitening,
     form the per-observation products and reduce them into U/V/W/g."""
     PC = problem.cam_dim
@@ -170,7 +191,7 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
     zs = torch.zeros_like(s)
     w = torch.where(valid, kernel.weight(s), zs)
     loss_vec = torch.where(valid, kernel.loss(s), zs)
-    cost = torch.sum(loss_vec)
+    cost = _ar(torch.sum(loss_vec), group)
     sw = torch.sqrt(w)[:, None]
 
     r = r * sw
@@ -192,10 +213,11 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
     gc_o = -torch.sum(Jc * r[:, :, None], dim=1)                 # [O, PC]
     gp_o = -torch.sum(Jp * r[:, :, None], dim=1)                 # [O, 3]
 
-    Ug = _seg_by_cam(torch.cat([U_o.reshape(O_n, PC * PC), gc_o], dim=1),
-                     obs.cam_idx, C)
-    V = _seg_by_pt(V_o, obs.pt_idx, num_points, buckets)
-    g_pt = _seg_by_pt(gp_o, obs.pt_idx, num_points, buckets)
+    Ug = _ar(_seg_by_cam(torch.cat([U_o.reshape(O_n, PC * PC), gc_o], dim=1),
+                         obs.cam_idx, C), group)
+    pt_group = group if replicated_points else None
+    V = _ar(_seg_by_pt(V_o, obs.pt_idx, num_points, buckets), pt_group)
+    g_pt = _ar(_seg_by_pt(gp_o, obs.pt_idx, num_points, buckets), pt_group)
     return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC), V=V,
                         W=W.contiguous(), g_cam=Ug[:, PC * PC:], g_pt=g_pt,
                         Hss=Hss, Jc_s=Jc_s, Jp_s=Jp_s, g_s=g_s, cost=cost,
@@ -259,19 +281,34 @@ def _tri3_solve(L, B):
     return torch.stack([x0, x1, x2], dim=-2)
 
 
-def schur_matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x):
+def schur_matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x, group=None):
     """Reduced-camera Schur operator: U_d x - SUM_cam W V_inv Wᵀ x, x [C, PC].
-    The observation side and its camera sum are one K1 launch on the card."""
-    return _mv(U_d, x) - schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets)
+    The observation side and its camera sum are one K1 launch on the card,
+    on the rank's own (point-local) rows, then summed over ``group``."""
+    return _mv(U_d, x) - _ar(schur_wchain(W, V_inv, x, cam_idx, pt_idx,
+                                          buckets), group)
+
+
+def schur_matvec_replicated(U_d, W, V_inv, cam_idx, pt_idx, group, x):
+    """The Schur operator where a track's rows lie on several ranks: the
+    track sums and the camera sums are both all-reduced, so the plain chain
+    runs in place of K1."""
+    T = V_inv.shape[0]
+    t = _mtv(W, x[cam_idx])                                        # [O, 3]
+    s = _ar(t.new_zeros((T, 3)).index_add_(0, pt_idx, t), group)
+    u = _mv(W, _mv(V_inv, s)[pt_idx])                              # [O, PC]
+    return _mv(U_d, x) - _ar(_seg_by_cam(u, cam_idx, x.shape[0]), group)
 
 
 def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                  lam, pcg_iters: int = 100, pcg_tol: float = 1e-5,
                  eps: float = 1e-8, dense_schur: Optional[bool] = None,
-                 buckets: tuple = ()):
+                 buckets: tuple = (), group=None,
+                 replicated_points: bool = False):
     """Solve (H + lam diag(H)) dx = g: scalar elimination -> point (Schur)
     elimination -> reduced camera system, by dense Cholesky or by
     block-Jacobi PCG.  Returns (d_cam, d_pt, d_s, cg_iters)."""
+    pt_group = group if replicated_points else None
     PC = problem.cam_dim
     C = sys.U.shape[0]
     T = sys.V.shape[0]
@@ -294,12 +331,12 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         gc_corr = sys.Jc_s * (inv_hss * sys.g_s)[:, None]
         gp_corr = sys.Jp_s * (inv_hss * sys.g_s)[:, None]
         O = W.shape[0]
-        cc = _seg_by_cam(torch.cat([U_corr.reshape(O, PC * PC), gc_corr], 1),
-                         cam_idx, C)
+        cc = _ar(_seg_by_cam(torch.cat([U_corr.reshape(O, PC * PC), gc_corr],
+                                       1), cam_idx, C), group)
         U = U - cc[:, :PC * PC].reshape(C, PC, PC)
         g_cam = g_cam - cc[:, PC * PC:]
-        V = V - _seg_by_pt(V_corr, pt_idx, T, buckets)
-        g_pt = g_pt - _seg_by_pt(gp_corr, pt_idx, T, buckets)
+        V = V - _ar(_seg_by_pt(V_corr, pt_idx, T, buckets), pt_group)
+        g_pt = g_pt - _ar(_seg_by_pt(gp_corr, pt_idx, T, buckets), pt_group)
         W = W - W_corr
 
     U_d = _damped(U, lam, eps)
@@ -317,7 +354,9 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
     if dense_schur:
         # exact reduced solve: S = blockdiag(U_d) - Yᵀ Y with
         # Y[3p + k, c*PC + j] = (L_p^{-1} W_oᵀ)[k, j], L_p = chol(V_d)
-        rhs = g_cam - _seg_by_cam(rhs_o, cam_idx, C)
+        if replicated_points:
+            raise ValueError("dense Schur needs each track on one rank")
+        rhs = g_cam - _ar(_seg_by_cam(rhs_o, cam_idx, C), group)
         L = _chol3x3(V_d)
         P = _tri3_solve(_gather_by_pt(L, pt_idx, buckets, O),
                         W.transpose(-1, -2))                       # [O, 3, PC]
@@ -331,7 +370,7 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         # full-precision float32 product on the card: TF32 would keep ~3
         # significant digits of the Schur complement
         with full_f32():
-            S = -(Y.T @ Y)
+            S = -_ar(Y.T @ Y, group)
         ii = torch.arange(C, device=dev)[:, None, None] * PC
         blk_r = (ii + torch.arange(PC, device=dev)[None, :, None]).expand(C, PC, PC)
         blk_c = (ii + torch.arange(PC, device=dev)[None, None, :]).expand(C, PC, PC)
@@ -350,21 +389,26 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         Vg = _gather_by_pt(V_inv, pt_idx, buckets, O)             # [O, 3, 3]
         WVi = torch.sum(W[:, :, :, None] * Vg[:, None, :, :], dim=2)
         D_corr = torch.sum(WVi[:, :, None, :] * W[:, None, :, :], -1)
-        dc = _seg_by_cam(torch.cat([D_corr.reshape(O, PC * PC), rhs_o], 1),
-                         cam_idx, C)
+        dc = _ar(_seg_by_cam(torch.cat([D_corr.reshape(O, PC * PC), rhs_o], 1),
+                             cam_idx, C), group)
         rhs = g_cam - dc[:, PC * PC:]
         D = U_d - dc[:, :PC * PC].reshape(C, PC, PC)
         D = D + eps * torch.eye(PC, dtype=D.dtype, device=D.device)
         D_inv = torch.linalg.inv(D)
 
-        matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx,
-                         buckets)
+        if replicated_points:
+            matvec = partial(schur_matvec_replicated, U_d, W, V_inv, cam_idx,
+                             pt_idx, group)
+        else:
+            matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx,
+                             buckets, group=group)
         d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
                               max_iters=pcg_iters, tol=pcg_tol)
         _dbg.stat_add("pcg_iters", iters)
 
     # back-substitute points: d_pt = V^-1 (g_pt - W^T d_cam)
-    wtd = _seg_by_pt(_mtv(W, d_cam[cam_idx]), pt_idx, T, buckets)
+    wtd = _ar(_seg_by_pt(_mtv(W, d_cam[cam_idx]), pt_idx, T, buckets),
+              pt_group)
     d_pt = _mv(V_inv, g_pt - wtd)
     d_s = _solve_scales(problem, sys, obs, d_cam, d_pt, lam, eps)
     return d_cam, d_pt, d_s, iters
@@ -419,21 +463,42 @@ def _apply_step(problem, params: Params, d_cam, d_pt, d_s) -> Params:
     return Params(cam, pts, scales, params.scales_free)
 
 
-def _float_leaves(params: Params):
-    return [*(params.cam[k] for k in sorted(params.cam)), params.pts,
-            params.scales]
+def _sq_sum(group, replicated_points, a: Params, b: Params = None):
+    """Sum of squares of the float parameters of ``a`` (or of ``a - b``)
+    over every rank: the cameras are the same on every rank, the scales
+    are the rank's own rows, and so are the points unless replicated."""
+    d = lambda x, y: x if y is None else x - y
+    cam = sum(torch.sum(torch.square(d(a.cam[k], None if b is None
+                                       else b.cam[k]))) for k in sorted(a.cam))
+    pts = torch.sum(torch.square(d(a.pts, None if b is None else b.pts)))
+    sc = torch.sum(torch.square(d(a.scales, None if b is None else b.scales)))
+    if group is None:
+        return cam + pts + sc
+    if replicated_points:
+        return cam + pts + _ar(sc, group)
+    return cam + _ar(pts + sc, group)
 
 
 def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
             cfg: LMConfig, state: LMState, obs: Observations,
-            buckets: tuple = (), device="cuda") -> LMState:
+            buckets: tuple = (), device="cuda", group=None,
+            replicated_points: bool = False) -> LMState:
     """One LM iteration: build the system once, retry the damped solve with
     increasing damping while the cost gets materially worse (at most
-    ``max_rejects`` retries)."""
+    ``max_rejects`` retries).
+
+    Under a process group (``group``) the solver must be named in ``cfg``
+    (``"pcg"``; dense Schur too where the points are point-local): "auto"
+    would read the rank's own point count, and ranks could then choose
+    differently."""
     check_on_device(device, state.params.pts)
+    if group is not None and cfg.solver == "auto":
+        raise ValueError("lm_step under a process group needs cfg.solver "
+                         "'pcg' or 'dense', not 'auto'")
     params = state.params
     sys = build_system(problem, params, obs, kernel,
-                       num_points=params.pts.shape[0], buckets=buckets)
+                       num_points=params.pts.shape[0], buckets=buckets,
+                       group=group, replicated_points=replicated_points)
     dense = None if cfg.solver == "auto" else (cfg.solver == "dense")
     loss_old = sys.loss_vec
     plateau_tol = 0.1 * cfg.function_tolerance
@@ -445,11 +510,12 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
             lam = lam / cfg.radius_down
         d_cam, d_pt, d_s, _ = solve_damped(
             problem, sys, obs, lam, cfg.pcg_iters, cfg.pcg_tol,
-            dense_schur=dense, buckets=buckets)
+            dense_schur=dense, buckets=buckets, group=group,
+            replicated_points=replicated_points)
         cand = _apply_step(problem, params, d_cam, d_pt, d_s)
         loss_new = compute_loss_vec(problem, cand, obs, kernel,
                                     buckets=buckets)
-        dc = torch.sum(loss_new - loss_old)
+        dc = _ar(torch.sum(loss_new - loss_old), group)
         k += 1
         finite = torch.isfinite(dc)
         bad = ~finite | (dc > plateau_tol * sys.cost)
@@ -462,9 +528,8 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
     if accepted_h:
         lam_next = torch.clamp_min(lam / cfg.radius_up, 1.0 / cfg.radius_max)
         params_next, cost_next, dcost = cand, sys.cost + dc, dc
-        sq = sum(torch.sum(torch.square(a - b)) for a, b in
-                 zip(_float_leaves(cand), _float_leaves(params)))
-        pq = sum(torch.sum(torch.square(a)) for a in _float_leaves(params))
+        sq = _sq_sum(group, replicated_points, cand, params)
+        pq = _sq_sum(group, replicated_points, params)
         rstep = torch.sqrt(sq / torch.clamp_min(pq, 1e-30))
     else:
         # on reject, raise the damping for the next iteration
@@ -476,16 +541,20 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
 
 def optimize(problem: BlockProblem, kernel: robust_mod.RobustKernel,
              cfg: LMConfig, params: Params, obs: Observations,
-             verbose: bool = False, buckets: tuple = (), device="cuda"):
+             verbose: bool = False, buckets: tuple = (), device="cuda",
+             step_fn=None):
     """Host-driven LM loop with the reference's termination tests.
 
     The convergence check lags one iteration behind, as in the JAX package
     (iteration k+1 runs before iteration k's cost is tested), so iteration
-    counts match it.  Returns (final LMState, f64 cumulative loss history).
+    counts match it.  ``step_fn(state, obs)`` replaces the single-device
+    ``lm_step``: the sharded step (``parallel/sharded.py``) shares this
+    loop, whose tests read only all-reduced scalars.  Returns (final
+    LMState, f64 cumulative loss history).
     """
     dev = check_on_device(device, params.pts)
-    step = partial(lm_step, problem, kernel, cfg, buckets=buckets,
-                   device=dev)
+    step = step_fn if step_fn is not None else partial(
+        lm_step, problem, kernel, cfg, buckets=buckets, device=dev)
     dtype = params.pts.dtype
     zero = torch.zeros((), dtype=dtype, device=dev)
     state = LMState(params, torch.full((), 1.0 / cfg.radius_init, dtype=dtype,

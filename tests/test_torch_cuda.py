@@ -448,9 +448,10 @@ def test_lpips_card_matches_cpu():
 def test_mapper_card_matches_cpu(tmp_path):
     """The global mapper on a 14-image ring database
     (``chip_smoke.write_ring_db``: 600 points, each image matched with the
-    next 6) on the card against the CPU, both float64, the RANSAC draws from one seeded CPU generator moved
-    to the card: the same registered images and tracks, poses and points
-    within 1e-6 (quaternions up to sign; centers and points relative to the
+    next 6) on the card against the CPU, both float64, the RANSAC draws from
+    seeded CPU generators (one a chunk and model) moved to the card: the
+    same registered images and tracks, poses and points within 1e-6
+    (quaternions up to sign; centers and points relative to the
     scene extent: sums in other orders).  At this size global positioning
     and bundle adjustment take the dense Schur solve (C * PC <= 2048 and
     T <= 8192, as in the JAX package), so K1 does not run here; it runs in
@@ -702,3 +703,109 @@ def test_svd3x3_double_singular_value_on_card():
     np.testing.assert_allclose(s.cpu().numpy(), s_cpu.numpy(), atol=1e-6)
     W, _ = torch.linalg.eigh(torch.tensor(MtM, device="cuda").double())
     np.testing.assert_allclose(W.cpu().numpy()[0], w, atol=1e-7)
+
+
+@pytest.fixture
+def nccl_world1():
+    """A process group of one rank over NCCL (the card takes one rank)."""
+    _need_card()
+    import socket
+
+    from instantsfm_tpu_torch.parallel import multihost
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(coordinator=f"localhost:{port}", num_processes=1,
+                         process_id=0, device="cuda", timeout_s=60)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.cuda
+def test_sharded_ba_nccl_matches_single_device(nccl_world1):
+    """``optimize_sharded`` (what ``optimize_auto`` runs above one rank: the
+    point-local partition, the all-reduces, K1 on the rank's buckets) over
+    the NCCL group against the single-device bucketed ``optimize``, both
+    float64 PCG, 8 LM iterations at most: poses within 1e-6 (atomics sum
+    in other orders), the same iteration count within one, K1 launched."""
+    import dataclasses
+
+    import chip_smoke
+    from instantsfm_tpu_torch import config
+    from instantsfm_tpu_torch.parallel import sharded
+    from instantsfm_tpu_torch.pipeline import ba
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import robust
+    from instantsfm_tpu_torch.solve.problems import make_ba_problem
+
+    cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                       num_pts=9000)
+    params, obs = chip_smoke.scene_problem(cameras, images, tracks,
+                                           torch.float64, "cuda")
+    opts = dict(config.BUNDLE_ADJUSTER_OPTIONS, max_num_iterations=8)
+    cfg = dataclasses.replace(ba._lm_config(opts), solver="pcg")
+    problem, kernel = make_ba_problem(cm.SIMPLE_RADIAL), robust.huber(1.0)
+    cam1, pts1, h1 = sharded.optimize_auto(problem, kernel, cfg, params, obs,
+                                           device="cuda")
+    launches = k1.schur_wchain.launches
+    cam2, pts2, h2 = sharded.optimize_sharded(problem, kernel, cfg, params,
+                                              obs, device="cuda")
+    assert k1.schur_wchain.launches > launches
+    assert abs(len(h1) - len(h2)) <= 1
+    for k in ("q", "t"):
+        np.testing.assert_allclose(cam2[k].cpu(), cam1[k].cpu(), atol=1e-6)
+    extent = float((pts1.max(0).values - pts1.min(0).values).norm())
+    assert float((pts2 - pts1).abs().max()) < 1e-6 * extent
+
+
+@pytest.mark.cuda
+def test_distributed_gs_step_nccl_matches_single_device(nccl_world1,
+                                                        tmp_path):
+    """The gaussian-sharded 3DGS loss and gradients over the NCCL group
+    (the all-to-all exchange, K2/K3 on the rank's views) against the
+    Runner's single-device loss on a small scene (its initial scales
+    perturbed per axis), float32: loss within 1e-5, gradients within 1e-4
+    of each field's largest; K2 and K3 launch once a view."""
+    import chip_smoke
+    from instantsfm_tpu_torch.gs import distributed as gd
+    from instantsfm_tpu_torch.gs.splats import FLOAT_FIELDS
+    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+
+    chip_smoke.make_gs_scene(str(tmp_path), "cpu", 600, 6, 96, 72)
+    runner = Runner(GSConfig(data_dir=str(tmp_path), result_dir=str(
+        tmp_path / "out"), batch_size=2, sh_degree=1, tile_capacity=128,
+        eval_steps=(), save_steps=()), log=lambda *a: None, device="cuda")
+    views = runner._views(np.random.default_rng(0))
+    pool = runner.splats
+    with torch.no_grad():
+        # anisotropic: isotropic gaussians' quaternion gradients are float
+        # noise, whose sum order on the card no bar can hold
+        pool.scales.add_(0.3 * torch.randn(
+            pool.scales.shape, generator=torch.Generator().manual_seed(0)
+        ).cuda())
+    offset = torch.zeros((pool.means.shape[0], 2), device="cuda",
+                         requires_grad=True)
+    loss1 = torch.stack([runner._loss(pool, v, offset, 1)[0]
+                         for v in views]).mean()
+    loss1.backward()
+    sp = gd.shard_splats(gd.pad_splats(pool, 1), 0, 1)
+    for f in FLOAT_FIELDS:
+        getattr(sp, f).requires_grad_(True)
+    offset2 = torch.zeros_like(offset, requires_grad=True)
+    batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
+             "K": torch.stack([v["K"] for v in views]),
+             "image": torch.stack([v["image"] for v in views])}
+    f0, b0 = k23.composite_fwd.launches, k23.composite_bwd.launches
+    objective, loss2, _, _, _ = gd.distributed_loss(
+        sp, offset2, batch, 96, 72, 1, tile_capacity=128)
+    objective.backward()
+    assert k23.composite_fwd.launches - f0 == 2
+    assert k23.composite_bwd.launches - b0 == 2
+    assert abs(loss2.item() - loss1.item()) <= 1e-5 * loss1.item()
+    for f in FLOAT_FIELDS:
+        _rel_close(getattr(sp, f).grad.cpu(), getattr(pool, f).grad.cpu(),
+                   1e-4)
+    _rel_close(offset2.grad.cpu(), offset.grad.cpu(), 1e-4)

@@ -33,7 +33,7 @@ from instantsfm_tpu_torch.gs.projection import quat_scale_to_cov
 from instantsfm_tpu_torch.gs import splats as tsp
 from instantsfm_tpu_torch.gs import ssim as tssim
 from instantsfm_tpu_torch.gs import strategy as tst
-from instantsfm_tpu_torch.gs.trainer import NOT_PORTED, GSConfig, Runner
+from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
 from instantsfm_tpu_torch.io import colmap_model as tcm
 
 LRS = {"means": 1.6e-4, "scales": 5e-3, "quats": 1e-3, "opacities": 5e-2,
@@ -318,13 +318,14 @@ def test_runner_three_steps_match_jax(scene, tmp_path):
     assert rel.max() <= 1e-3, rel.max()
 
 
-@pytest.mark.parametrize("option", sorted(NOT_PORTED))
-def test_runner_rejects_unported_options(option):
-    """Options outside the port raise, naming their ROADMAP item, before
-    any data is read."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        Runner(GSConfig(data_dir="/nonexistent", **{option: True}),
-               device="cpu")
+@pytest.mark.parametrize("option", ["distributed"])
+def test_runner_rejects_unported_options(option, tmp_path):
+    """No option is left outside the port: ``distributed``, the last one
+    (``gs/distributed.py``), passes the option checks, and the Runner goes
+    on to read its scene."""
+    with pytest.raises(FileNotFoundError, match="nonexistent"):
+        Runner(GSConfig(data_dir="/nonexistent", result_dir=str(tmp_path),
+                        **{option: True}), device="cpu")
 
 
 def test_cli_trains_evaluates_and_checkpoints(scene, tmp_path):

@@ -1,0 +1,240 @@
+"""The port's multi-process LM engine (``instantsfm_tpu_torch/parallel/
+sharded.py``) against one process and against the JAX package.
+
+The host partition functions must give JAX's arrays exactly, at 2, 3 and 8
+shards.  One gloo group of two CPU processes (``tests/torch_dist.py``, a
+module fixture) runs, in float64 on the 10-camera scenes of
+``tests/test_sharded.py``: three point-local LM steps and three
+observation-sharded ones on BA and on GP, and ``optimize_auto`` (five LM
+iterations, too few for the window test, so both sides run all five).
+They are held to ``tests/test_sharded.py``'s bars: cost rtol 1e-6, points
+1e-6, rotations 1e-8, GP centers 1e-7; ``optimize_auto`` to JAX's
+``optimize_auto`` on the conftest's 8 virtual devices within that file's
+``test_optimize_auto_*_parity`` bars (a 2-way against an 8-way split:
+sums in other orders).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instantsfm_tpu.parallel import sharded as jsh
+from instantsfm_tpu.solve import block_lm as jbl
+from instantsfm_tpu.solve import robust as jrobust
+from instantsfm_tpu.solve.blocked import bucketize_problem as jbucketize
+from instantsfm_tpu_torch import convert
+from instantsfm_tpu_torch.parallel import sharded as tsh
+from instantsfm_tpu_torch.solve import block_lm as tbl
+from tests.synthetic import make_scene
+from tests.test_block_lm import _ba_setup
+from tests.test_sharded import _gp_setup
+from tests.torch_cpu import lean_cpu  # noqa: F401  (module fixture)
+from tests.torch_dist import lm_problem, lm_state0, run_group
+
+STEPS = 3
+
+
+def _jax_problem(kind):
+    if kind == "ba":
+        return _ba_setup(make_scene(num_cams=10, num_pts=120))
+    return _gp_setup()
+
+
+def _jax_cfg(kind):
+    _, _, cfg = lm_problem(kind)
+    return jbl.LMConfig(**dataclasses.asdict(cfg))
+
+
+def _jax_kernel(kind):
+    return jrobust.huber(1.0 if kind == "ba" else 0.1)
+
+
+def _to_torch(params, obs):
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    p, o, _ = convert.from_numpy(as_np(params), as_np(obs), device="cpu",
+                                 dtype=torch.float64)
+    return p, o
+
+
+@pytest.fixture(scope="module")
+def problems():
+    return {k: _jax_problem(k) for k in ("ba", "gp")}
+
+
+@pytest.fixture(scope="module")
+def group(problems, tmp_path_factory):
+    """Every multi-process result of this file, from one group of two."""
+    payload = {"steps": STEPS,
+               "problems": {k: _to_torch(p, o)
+                            for k, (_, p, o) in problems.items()}}
+    r0, r1 = run_group(2, "lm", payload,
+                       str(tmp_path_factory.mktemp("lm_group")))
+    # the cameras, the cost and the gathered points are the same on both
+    flat = lambda v: np.concatenate([np.ravel(v[k]) for k in sorted(v)]) \
+        if isinstance(v, dict) else np.ravel(np.asarray(v, np.float64))
+    for key, a in r0.items():
+        for field, v in a.items():
+            np.testing.assert_array_equal(
+                flat(v), flat(r1[key][field]),
+                err_msg=f"{key}.{field} differs between the ranks")
+    return r0
+
+
+@pytest.fixture(scope="module")
+def single(problems):
+    """Three single-process ``lm_step``s of the port, per problem."""
+    out = {}
+    for kind, (_, params, obs) in problems.items():
+        problem, kernel, cfg = lm_problem(kind)
+        tp, to = _to_torch(params, obs)
+        state = lm_state0(tp, cfg)
+        for _ in range(STEPS):
+            state = tbl.lm_step(problem, kernel, cfg, state, to, device="cpu")
+        out[kind] = state
+    return out
+
+
+def _jax_pointlocal(kind, problems):
+    problem, params, obs = problems[kind]
+    cfg = _jax_cfg(kind)
+    mesh = jsh.make_mesh(jax.devices()[:8])
+    pp, po, meta = jsh.partition_points(params, obs, 8)
+    pp, po = jsh.shard_problem_pointlocal(mesh, pp, po)
+    state = jbl.LMState(pp, jnp.asarray(1.0 / cfg.radius_init),
+                        jnp.asarray(jnp.inf))
+    step = jsh.make_pointlocal_lm_step(mesh, problem, _jax_kernel(kind), cfg,
+                                       state, po)
+    for _ in range(STEPS):
+        state = step(state, po)
+    return state, meta
+
+
+def _close(got, want, kind):
+    """``tests/test_sharded.py``'s bars."""
+    np.testing.assert_allclose(got["cost"], float(want.cost), rtol=1e-6)
+    cam = convert.to_numpy(want.params.cam)
+    if kind == "ba":
+        np.testing.assert_allclose(got["pts"], np.asarray(want.params.pts),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got["cam"]["q"], cam["q"], atol=1e-8)
+    else:
+        np.testing.assert_allclose(got["cam"]["c"], cam["c"], atol=1e-7)
+
+
+# ---------------------------------------------------- host partitioning
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_partition_functions_match_jax(problems, n):
+    """``partition_points``, ``unpartition_*``, ``pad_*`` and
+    ``partition_bucketed`` give JAX's arrays exactly."""
+    _, params, obs = problems["gp"]
+    tp, to = _to_torch(params, obs)
+    jp, jo, jmeta = jsh.partition_points(params, obs, n)
+    pp, po, meta = tsh.partition_points(tp, to, n)
+    for a, b in ((jmeta.bounds, meta.bounds),
+                 (jmeta.obs_bounds, meta.obs_bounds)):
+        np.testing.assert_array_equal(a, b)
+    assert (jmeta.T_pad, jmeta.O_pad) == (meta.T_pad, meta.O_pad)
+    for a, b in ((jp.pts, pp.pts), (jp.scales, pp.scales),
+                 (jp.scales_free, pp.scales_free), (jo.cam_idx, po.cam_idx),
+                 (jo.pt_idx, po.pt_idx), (jo.valid, po.valid),
+                 *((jo.data[k], po.data[k]) for k in jo.data)):
+        np.testing.assert_array_equal(np.asarray(a), convert.to_numpy(b))
+    np.testing.assert_array_equal(
+        jsh.unpartition_points(jp.pts, jmeta),
+        tsh.unpartition_points(pp.pts, meta))
+    np.testing.assert_array_equal(
+        jsh.unpartition_scales(jp.scales, jmeta),
+        tsh.unpartition_scales(pp.scales, meta))
+
+    jpo = jsh.pad_observations(obs, n, num_points=params.pts.shape[0])
+    tpo = tsh.pad_observations(to, n, num_points=tp.pts.shape[0])
+    for k in ("cam_idx", "pt_idx", "valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(jpo, k)),
+                                      convert.to_numpy(getattr(tpo, k)))
+    np.testing.assert_array_equal(
+        np.asarray(jsh.pad_scales(params, n).scales),
+        convert.to_numpy(tsh.pad_scales(tp, n).scales))
+
+    # the same bucketed problem through both partitions
+    pad = -(-max(16, n) // n) * n
+    bp, bo, buckets, _ = jbucketize(params, obs, track_pad=pad)
+    tbp, tbo = _to_torch(bp, bo)
+    jp, jo, jm = jsh.partition_bucketed(bp, bo, buckets, n)
+    pp, po, m = tsh.partition_bucketed(tbp, tbo, buckets, n)
+    np.testing.assert_array_equal(jm.pt_take, m.pt_take)
+    np.testing.assert_array_equal(jm.obs_take, m.obs_take)
+    assert jm.local_buckets == m.local_buckets
+    assert (jm.local_T, jm.local_O) == (m.local_T, m.local_O)
+    for a, b in ((jp.pts, pp.pts), (jp.scales, pp.scales),
+                 (jo.cam_idx, po.cam_idx), (jo.pt_idx, po.pt_idx),
+                 (jo.valid, po.valid), (jo.data["tx"], po.data["tx"])):
+        np.testing.assert_array_equal(np.asarray(a), convert.to_numpy(b))
+
+
+# ------------------------------------------------------ sharded LM steps
+
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_pointlocal_step_matches_single_and_jax(group, single, problems,
+                                                kind):
+    """Three point-local steps at world size 2 against three single-process
+    steps of the port and three of JAX's point-local step on 8 devices."""
+    got = group[f"{kind}_pointlocal"]
+    _close(got, single[kind], kind)
+    jstate, jmeta = _jax_pointlocal(kind, problems)
+    np.testing.assert_allclose(got["cost"], float(jstate.cost), rtol=1e-6)
+    if kind == "ba":
+        np.testing.assert_allclose(
+            got["pts"], jsh.unpartition_points(jstate.params.pts, jmeta),
+            atol=1e-6)
+        np.testing.assert_allclose(got["cam"]["q"],
+                                   np.asarray(jstate.params.cam["q"]),
+                                   atol=1e-8)
+    else:
+        np.testing.assert_allclose(got["cam"]["c"],
+                                   np.asarray(jstate.params.cam["c"]),
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_observation_sharded_step_matches_single(group, single, kind):
+    """Three observation-sharded steps (points on every rank, their sums
+    all-reduced, the plain Schur chain) against three single-process
+    steps."""
+    _close(group[f"{kind}_sharded"], single[kind], kind)
+
+
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_optimize_auto_matches_jax(group, problems, kind, monkeypatch):
+    """``optimize_auto`` over the group of two against JAX's over its 8
+    virtual devices (bucketed, point-local, five LM iterations)."""
+    problem, params, obs = problems[kind]
+    monkeypatch.delenv("ISFM_NO_SHARD", raising=False)
+    cam, pts, hist = jsh.optimize_auto(problem, _jax_kernel(kind),
+                                       _jax_cfg(kind), params, obs)
+    got = group[f"{kind}_auto"]
+    assert len(got["history"]) == len(hist)
+    if kind == "ba":
+        np.testing.assert_allclose(got["pts"], np.asarray(pts), atol=1e-8)
+        np.testing.assert_allclose(got["cam"]["q"], np.asarray(cam["q"]),
+                                   atol=1e-10)
+        np.testing.assert_allclose(got["cam"]["t"], np.asarray(cam["t"]),
+                                   atol=1e-8)
+    else:
+        np.testing.assert_allclose(got["pts"], np.asarray(pts), atol=1e-7)
+        np.testing.assert_allclose(got["cam"]["c"], np.asarray(cam["c"]),
+                                   atol=1e-8)
+
+
+def test_lm_step_under_a_group_needs_a_named_solver(problems):
+    """Under a process group "auto" would choose dense or PCG from the
+    rank's own point count; ``lm_step`` refuses it before any collective."""
+    problem, kernel, cfg = lm_problem("ba")
+    tp, to = _to_torch(*problems["ba"][1:])
+    with pytest.raises(ValueError, match="auto"):
+        tbl.lm_step(problem, kernel, dataclasses.replace(cfg, solver="auto"),
+                    lm_state0(tp, cfg), to, device="cpu", group=object())
