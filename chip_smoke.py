@@ -103,8 +103,11 @@ Phases (any failure exits non-zero):
      Then two ranks on the card over gloo (this script with
      ``--dist-worker``, two processes) run ``cli.feat`` and ``cli.sfm`` on
      phase 7's views: extraction, matching and relative pose shared, GP
-     and BA point-sharded, rank 0 writing; the model is held to phase 7's
-     bars and K1 must launch on both ranks;
+     and BA point-sharded, rank 0 writing; the database must hold phase
+     7's images, keypoint counts, matched and verified pairs, and its
+     matches but for ``DIST_MATCH_SHARE`` of them, the model must register
+     as many views as phase 7's and meet its bars, and K1 must launch on
+     both ranks;
   13. prints the kernels line, the card line and, last, the ok line.
 """
 
@@ -2608,6 +2611,17 @@ def run_gs_opts(device, root, gs_rec, profile=False):
 
 DIST_GS_BATCH = 2          # views of the distributed 3DGS step
 DIST_WORKER_TIMEOUT_S = 420
+# SIFT sums its orientation and descriptor histograms with float atomics
+# (scatter_add_) on the card, so from run to run a descriptor may move by a
+# level and a ratio test at its threshold may flip (one match of 31,911 in
+# one two-rank run on an H100); a lost or misplaced slice of a rank's pairs
+# would move about half of them
+DIST_MATCH_SHARE = 0.001
+# the sharded BA's mean rotation error against the single-device solve's:
+# that solve alone, on the same input, ended between 0.0053 and 0.0064
+# degrees in three runs on an H100 (its float32 PCG path follows K1's
+# atomic camera sums), against 0.24 degrees before it
+DIST_BA_ROT_RATIO = 1.5
 
 
 def free_port() -> int:
@@ -2660,6 +2674,8 @@ def dist_ba(device):
                                            device=device)
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
+    cam1b, _, _ = sharded.optimize_auto(problem, kernel, cfg, params, obs,
+                                        device=device)
 
     kept = []
     launch, keep = first_k1_input(kept)
@@ -2679,12 +2695,13 @@ def dist_ba(device):
     k1_rec = k1_sfm_check("sharded BA", kept[0], device)
     rot1, cen1 = pose_errors(solved_images(images, cam1), gt)
     rot2, cen2 = pose_errors(solved_images(images, cam2), gt)
+    rot1b, _ = pose_errors(solved_images(images, cam1b), gt)
     rec = dict(single_s=single_s, sharded_s=sharded_s,
                lm_iters_single=len(h1), lm_iters_sharded=len(h2),
                cost_before=cost0, cost_single=cost(cam1, pts1),
                cost_sharded=cost(cam2, pts2),
                rot_err_deg_before=rot0, rot_err_deg_single=rot1,
-               rot_err_deg_sharded=rot2, center_err_rel_before=cen0,
+               rot_err_deg_single_again=rot1b, rot_err_deg_sharded=rot2, center_err_rel_before=cen0,
                center_err_rel_single=cen1, center_err_rel_sharded=cen2,
                k1_launches=launches, pcg_iters=sum(pcg), k1=k1_rec)
     checks = {
@@ -2694,8 +2711,8 @@ def dist_ba(device):
         "sharded BA: cost within 1% of the single-device solve's":
             abs(rec["cost_sharded"] - rec["cost_single"])
             <= 0.01 * rec["cost_single"],
-        "sharded BA: rotation error within 10% of the single-device "
-        "solve's": rot2 <= 1.1 * rot1 + 1e-4,
+        f"sharded BA: rotation error within {DIST_BA_ROT_RATIO}x the "
+        "single-device solve's": rot2 <= DIST_BA_ROT_RATIO * rot1,
         "sharded BA: center error within 10% of the single-device "
         "solve's": cen2 <= 1.1 * cen1 + 1e-6,
         "sharded BA: K1 launched at least once per PCG iteration":
@@ -2888,12 +2905,49 @@ def dist_worker(rank, port, work, device="cuda"):
     multihost.shutdown()
 
 
+def db_differences(db_a, db_b):
+    """How the COLMAP database ``db_b`` differs from ``db_a``: whether the
+    images, each image's keypoint count, the matched pairs and the verified
+    pairs are the same, and how many matches (image row pairs) lie in one
+    database only, against ``db_a``'s total."""
+    import sqlite3
+
+    def read(db):
+        con = sqlite3.connect(db)
+        try:
+            q = lambda sql: con.execute(sql).fetchall()
+            return dict(
+                images=q("SELECT image_id, name FROM images ORDER BY 1"),
+                keypoints=q("SELECT image_id, rows FROM keypoints ORDER BY 1"),
+                matches={pid: set(map(tuple, np.frombuffer(
+                    blob or b"", np.uint32).reshape(n, 2).tolist()))
+                    for pid, n, blob in q("SELECT pair_id, rows, data FROM "
+                                          "matches")},
+                verified=sorted(r[0] for r in q(
+                    "SELECT pair_id FROM two_view_geometries")))
+        finally:
+            con.close()
+
+    a, b = read(db_a), read(db_b)
+    return dict(
+        same_images=a["images"] == b["images"],
+        same_keypoint_counts=a["keypoints"] == b["keypoints"],
+        same_matched_pairs=a["matches"].keys() == b["matches"].keys(),
+        same_verified_pairs=a["verified"] == b["verified"],
+        matches=sum(len(m) for m in a["matches"].values()),
+        matches_differing=sum(len(m ^ b["matches"].get(pid, set()))
+                              for pid, m in a["matches"].items()))
+
+
 def dist_two_ranks(pix_work, pix_gt, pix_rec):
     """Two ranks on the one card over gloo (NCCL takes one rank a card):
     ``cli.feat`` and ``cli.sfm`` on the PIXELS phase's views, each rank
     extracting and matching its slice, relative pose exchanging chunks and
     GP and BA sharding their points (PCG, K1 on each rank); rank 0 writes
-    the database and the model, held to the PIXELS phase's bars."""
+    the database, which must hold the PIXELS phase's images, keypoint
+    counts, matched and verified pairs, and its matches but for
+    ``DIST_MATCH_SHARE`` of them (``db_differences``), and the model, which
+    must register as many views as that phase's and meet its bars."""
     work = os.path.join(pix_work, "two_ranks")
     shutil.copytree(os.path.join(pix_work, "images"),
                     os.path.join(work, "images"))
@@ -2929,6 +2983,8 @@ def dist_two_ranks(pix_work, pix_gt, pix_rec):
     n_reg, n_pts, rot, ate = model_errors(os.path.join(work, "sparse", "0"),
                                           pix_gt)
     st = ranks[0]["feat"]
+    db = db_differences(os.path.join(pix_work, "database.db"),
+                        os.path.join(work, "database.db"))
     rec = dict(seconds=seconds, feat_s=[r["feat_s"] for r in ranks],
                sfm_s=[r["sfm_s"] for r in ranks],
                k1_launches=[r["k1_launches"] for r in ranks],
@@ -2939,11 +2995,19 @@ def dist_two_ranks(pix_work, pix_gt, pix_rec):
                verified_pairs_one_rank=pix_rec["verified_pairs"],
                registered=n_reg, registered_one_rank=pix_rec["registered"],
                points=n_pts, rot_err_deg_max=float(rot.max()),
-               ate_rel_max=float(ate.max()))
+               ate_rel_max=float(ate.max()), database_vs_one_rank=db)
     checks = {
         "two ranks: cli.feat and cli.sfm exit 0 on both":
             all(r["rc_feat"] == 0 and r["rc_sfm"] == 0 for r in ranks),
         "two ranks: rank 1 wrote no database": ranks[1]["feat"] is None,
+        "two ranks: one rank's images and keypoint count per image":
+            db["same_images"] and db["same_keypoint_counts"],
+        "two ranks: one rank's matched and verified pairs":
+            db["same_matched_pairs"] and db["same_verified_pairs"],
+        f"two ranks: at most {DIST_MATCH_SHARE:.1%} of one rank's matches "
+        "differ": db["matches_differing"] <= DIST_MATCH_SHARE * db["matches"],
+        "two ranks: as many views registered as one rank":
+            n_reg == pix_rec["registered"],
         f"two ranks: >= {PIX_VIEWS - 1}/{PIX_VIEWS} views registered":
             n_reg >= PIX_VIEWS - 1,
         "two ranks: more than 300 points": n_pts > 300,

@@ -4,7 +4,8 @@ Counterpart of ``instantsfm_tpu/gs/distributed.py`` (gsplat's
 ``distributed=True`` rasterization with DDP):
 
 * the splat pool is cut into contiguous equal shards, one per rank of the
-  process group (``pad_splats`` makes the capacity divide by the world);
+  default process group (``pad_splats`` makes the capacity divide by the
+  world);
 * each rank projects ITS gaussians for ALL B views of the batch
   (``rasterize.project_view``), then one ``all_to_all`` regroups the
   screen-space gaussians so that each rank composites ALL gaussians for ITS
@@ -33,15 +34,9 @@ from instantsfm_tpu_torch.gs.splats import FIELDS, Splats
 from instantsfm_tpu_torch.parallel.multihost import \
     all_gather_rows as gather_rows
 
-AXIS = None   # the default process group (JAX's mesh axis "gs")
-
 # Projected2D fields in the order of the exchanged [.., 12] rows
 _PARTS = (("means2d", 2), ("conics", 3), ("depths", 1), ("radii", 1),
           ("valid", 1), ("colors", 3), ("opac", 1))
-
-
-def _group(group):
-    return group if group is not None else dist.group.WORLD
 
 
 def pad_splats(splats: Splats, n_dev: int) -> Splats:
@@ -62,10 +57,9 @@ def shard_splats(splats: Splats, rank: int, world: int) -> Splats:
                      .detach().clone() for k in FIELDS})
 
 
-def gather_splats(splats: Splats, group=AXIS) -> Splats:
+def gather_splats(splats: Splats) -> Splats:
     """The whole pool on every rank (a copy)."""
-    return Splats(**{k: gather_rows(getattr(splats, k), group)
-                     for k in FIELDS})
+    return Splats(**{k: gather_rows(getattr(splats, k)) for k in FIELDS})
 
 
 class _Exchange(torch.autograd.Function):
@@ -74,30 +68,29 @@ class _Exchange(torch.autograd.Function):
     ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        D = dist.get_world_size(group)
+    def forward(ctx, x):
+        D = dist.get_world_size()
         B, G = x.shape[0], x.shape[1]
         send = x.reshape((D, B // D) + tuple(x.shape[1:])).contiguous()
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        dist.all_to_all_single(recv, send)
         # recv[s] = rank s's gaussians for this rank's views
         return recv.transpose(0, 1).reshape(
             (B // D, D * G) + tuple(x.shape[2:]))
 
     @staticmethod
     def backward(ctx, g):
-        D = dist.get_world_size(ctx.group)
+        D = dist.get_world_size()
         b, GD = g.shape[0], g.shape[1]
         send = g.reshape((b, D, GD // D) + tuple(g.shape[2:])) \
             .transpose(0, 1).contiguous()
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=ctx.group)
+        dist.all_to_all_single(recv, send)
         # recv[s] = the gradient of my gaussians from rank s's views
-        return recv.reshape((D * b, GD // D) + tuple(g.shape[2:])), None
+        return recv.reshape((D * b, GD // D) + tuple(g.shape[2:]))
 
 
-def exchange(ps, group=AXIS):
+def exchange(ps):
     """A list of B per-view ``Projected2D`` of the rank's G_loc gaussians ->
     B/D ``Projected2D`` of all gaussians, for this rank's views."""
     rows = torch.stack([torch.cat([
@@ -106,7 +99,7 @@ def exchange(ps, group=AXIS):
         if name not in ("radii", "valid") else
         getattr(p, name).detach().reshape(-1, 1).to(p.means2d.dtype)
         for name, width in _PARTS], dim=1) for p in ps])
-    full = _Exchange.apply(rows, _group(group))
+    full = _Exchange.apply(rows)
     out, lo = [], 0
     cols = {}
     for name, width in _PARTS:
@@ -125,7 +118,7 @@ def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
                      sh_degree: int, ssim_lambda: float = 0.2,
                      tiles_per_gauss: int = 16, tile_capacity: int = 512,
                      opacity_reg: float = 0.0, scale_reg: float = 0.0,
-                     camera_model: str = "pinhole", group=AXIS):
+                     camera_model: str = "pinhole"):
     """Returns (objective, loss, radii_max [G_loc], seen [G_loc], rgb
     [B/D, H, W, 3]).
 
@@ -137,8 +130,7 @@ def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
     backward, is the gradient of ``loss``, the mean over every view of
     (1-λ)·L1 + λ·(1-SSIM) plus the pool-wide regularizers, as one device
     computes it.  ``loss`` is detached and the same on every rank."""
-    group = _group(group)
-    D = dist.get_world_size(group)
+    D = dist.get_world_size()
     opac = torch.sigmoid(splats.opacities) * splats.alive
     sh_coeffs = torch.cat([splats.sh0, splats.shN], dim=1)
     scales = torch.exp(splats.scales)
@@ -152,7 +144,7 @@ def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
 
     bkgd = splats.means.new_zeros(3)
     losses, rgbs = [], []
-    for pv, gt in zip(exchange(ps, group), batch["image"]):
+    for pv, gt in zip(exchange(ps), batch["image"]):
         rgb = raster_mod.rasterize_projected(
             pv, width, height, tiles_per_gauss=tiles_per_gauss,
             tile_capacity=tile_capacity, background=bkgd).rgb
@@ -169,7 +161,7 @@ def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
             torch.abs(scales) * splats.alive[:, None])
     objective = objective / D
     loss = objective.detach().clone()
-    dist.all_reduce(loss, group=group)
+    dist.all_reduce(loss)
     return objective, loss, radii_max, seen, torch.stack(rgbs)
 
 
@@ -180,7 +172,7 @@ def make_distributed_train_step(optimizer, width: int, height: int,
                                 opacity_reg: float = 0.0,
                                 scale_reg: float = 0.0,
                                 camera_model: str = "pinhole",
-                                optimizer_step=None, group=AXIS):
+                                optimizer_step=None):
     """``step(splats, batch, sh_degree) -> (loss, g_offset, radii, seen)``:
     the distributed loss, one backward pass, and each rank's optimizer over
     its own shard (``optimizer_step(seen)`` in place of
@@ -194,7 +186,7 @@ def make_distributed_train_step(optimizer, width: int, height: int,
         objective, loss, radii, seen, _ = distributed_loss(
             splats, offset, batch, width, height, sh_degree, ssim_lambda,
             tiles_per_gauss, tile_capacity, opacity_reg, scale_reg,
-            camera_model, group)
+            camera_model)
         optimizer.zero_grad(set_to_none=True)
         objective.backward()
         if optimizer_step is None:
@@ -212,7 +204,7 @@ MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 @torch.no_grad()
-def run_on_pool(splats: Splats, optimizer, fn, group=AXIS):
+def run_on_pool(splats: Splats, optimizer, fn):
     """Run ``fn(pool, pool_optimizer)`` on the whole pool on every rank and
     keep this rank's rows: the pool and its Adam moments are all-gathered,
     ``fn`` changes them in place as it would on one device (the
@@ -221,15 +213,14 @@ def run_on_pool(splats: Splats, optimizer, fn, group=AXIS):
     ``optimizer`` is ``splats.make_optimizer``'s (one group per field,
     named); ``fn`` must draw its random numbers the same way on every rank.
     Returns what ``fn`` returns."""
-    group = _group(group)
-    rank = dist.get_rank(group)
-    pool = gather_splats(splats, group)
+    rank = dist.get_rank()
+    pool = gather_splats(splats)
     groups, state = [], {}
     for g in optimizer.param_groups:
         (p,), q = g["params"], getattr(pool, g["name"])
         st = optimizer.state.get(p)
         if st:
-            state[q] = {k: gather_rows(st[k], group) for k in MOMENTS}
+            state[q] = {k: gather_rows(st[k]) for k in MOMENTS}
         groups.append({"params": [q]})
     out = fn(pool, SimpleNamespace(param_groups=groups, state=state))
     n = splats.means.shape[0]

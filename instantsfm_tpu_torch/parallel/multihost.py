@@ -129,12 +129,11 @@ def host_group():
     return _HOST_GROUP
 
 
-def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
-    """[n, ...] on every rank of ``group`` (the default group when None) ->
-    [world * n, ...] in rank order (detached, on ``x``'s device)."""
-    group = group if group is not None else dist.group.WORLD
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, x.detach().contiguous(), group=group)
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """[n, ...] on every rank of the default group -> [world * n, ...] in
+    rank order (detached, on ``x``'s device)."""
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, x.detach().contiguous())
     return torch.cat(out)
 
 

@@ -37,7 +37,7 @@ from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.solve import robust
 from instantsfm_tpu_torch.solve.block_lm import (LMConfig, Observations,
                                                  Params, lm_step, optimize)
-from instantsfm_tpu_torch.solve.blocked import bucketize_problem
+from instantsfm_tpu_torch.solve.blocked import TRACK_PAD, bucketize_problem
 from instantsfm_tpu_torch.utils.debug import span
 from instantsfm_tpu_torch.utils.device import check_on_device
 
@@ -52,12 +52,12 @@ def _like(a, ref):
     return torch.as_tensor(np.ascontiguousarray(a), device=ref.device)
 
 
-def shard_world(group=None) -> int:
-    """Ranks the LM solves are sharded over: the group's size, or 1 under
-    ``ISFM_NO_SHARD`` or without a process group."""
+def shard_world() -> int:
+    """Ranks the LM solves are sharded over: the default group's size, or 1
+    under ``ISFM_NO_SHARD`` or without a process group."""
     if os.environ.get("ISFM_NO_SHARD") or not dist.is_initialized():
         return 1
-    return dist.get_world_size(group)
+    return dist.get_world_size()
 
 
 # ------------------------------------------------ observation-sharded
@@ -106,13 +106,13 @@ def shard_problem(params: Params, obs: Observations, rank: int, world: int):
 
 
 def make_sharded_lm_step(problem, kernel: robust.RobustKernel, cfg: LMConfig,
-                         group=None, device="cuda"):
+                         device="cuda"):
     """``step(state, obs)`` over ``shard_problem``'s slices: matrix-free PCG
     (dense Schur would need every track on one rank), the point-side sums
-    all-reduced as well as the camera ones."""
+    all-reduced over the default group as well as the camera ones."""
     cfg = dataclasses.replace(cfg, solver="pcg")
     return partial(lm_step, problem, kernel, cfg, device=device,
-                   group=group or dist.group.WORLD, replicated_points=True)
+                   group=dist.group.WORLD, replicated_points=True)
 
 
 # ------------------------------------------------------- point-local
@@ -223,17 +223,17 @@ def rank_slice(params: Params, obs: Observations, rank: int, local_T: int,
 
 
 def make_pointlocal_lm_step(problem, kernel: robust.RobustKernel,
-                            cfg: LMConfig, group=None, buckets: tuple = (),
+                            cfg: LMConfig, buckets: tuple = (),
                             device="cuda"):
     """``step(state, obs)`` on this rank's point-local shard: ``lm_step``
-    with the camera reductions and scalars all-reduced over ``group`` (the
-    default group when None) and ``buckets`` the rank's own bucket table
+    with the camera reductions and scalars all-reduced over the default
+    group and ``buckets`` the rank's own bucket table
     (``partition_bucketed``'s ``local_buckets``, the same on every rank),
     with which K1 runs on the rank's rows.  The solver is PCG: dense Schur
     would sum a [3T, C*PC] product across ranks."""
     cfg = dataclasses.replace(cfg, solver="pcg")
     return partial(lm_step, problem, kernel, cfg, buckets=buckets,
-                   device=device, group=group or dist.group.WORLD)
+                   device=device, group=dist.group.WORLD)
 
 
 class BucketPartition(NamedTuple):
@@ -299,7 +299,7 @@ def partition_bucketed(params: Params, obs: Observations, buckets: tuple,
 # ------------------------------------------------- production driver
 
 
-def _check_same_problem(params: Params, obs: Observations, buckets, group):
+def _check_same_problem(params: Params, obs: Observations, buckets):
     """Every rank must hold the same problem, or the collectives of the
     solve would pair up wrong: compare the shapes and bucket tables over
     the host group, and raise where they differ."""
@@ -313,39 +313,38 @@ def _check_same_problem(params: Params, obs: Observations, buckets, group):
 
 
 def optimize_sharded(problem, kernel, cfg: LMConfig, params: Params,
-                     obs: Observations, *, group=None, verbose: bool = False,
-                     track_pad: int = 256, device="cuda"):
-    """The point-local solve over the ranks of ``group`` (the default group
-    when None), at any world size, one included.
+                     obs: Observations, *, verbose: bool = False,
+                     device="cuda"):
+    """The point-local solve over the ranks of the default group, at any
+    world size, one included.
 
     Every rank passes the whole problem.  The tracks are bucketed with
-    ``track_pad`` rounded up to a multiple of the world size, split by
+    ``TRACK_PAD`` rounded up to a multiple of the world size, split by
     ``partition_bucketed``, and each rank solves its shard; the cameras
     start from rank 0's values.  Returns ``(cam, pts, history)`` with the
     points all-gathered back into their original order on every rank."""
     dev = check_on_device(device, params.pts)
-    group = group or dist.group.WORLD
-    world, rank = dist.get_world_size(group), dist.get_rank(group)
-    pad = -(-max(track_pad, world) // world) * world
+    world, rank = dist.get_world_size(), dist.get_rank()
+    pad = -(-max(TRACK_PAD, world) // world) * world
     with span("optimize_sharded bucketize"):
         params_b, obs_b, buckets, point_slots = bucketize_problem(
             params, obs, track_pad=pad)
-    _check_same_problem(params_b, obs_b, buckets, group)
+    _check_same_problem(params_b, obs_b, buckets)
     params_p, obs_p, meta = partition_bucketed(params_b, obs_b, buckets, world)
     # the cameras are replicated state: one value on every rank
     cam = {k: v.clone() for k, v in params_p.cam.items()}
     for v in cam.values():
-        dist.broadcast(v, dist.get_global_rank(group, 0), group=group)
+        dist.broadcast(v, 0)
     params_p = params_p._replace(cam=cam)
     params_l, obs_l = rank_slice(params_p, obs_p, rank, meta.local_T,
                                  meta.local_O)
-    step = make_pointlocal_lm_step(problem, kernel, cfg, group=group,
+    step = make_pointlocal_lm_step(problem, kernel, cfg,
                                    buckets=meta.local_buckets, device=dev)
     with span("optimize_sharded lm loop"):
         state, history = optimize(problem, kernel, cfg, params_l, obs_l,
                                   verbose=verbose, device=dev, step_fn=step)
     # rank shards -> global bucket slots -> original point order
-    pts_part = multihost.all_gather_rows(state.params.pts, group)
+    pts_part = multihost.all_gather_rows(state.params.pts)
     pts_b = torch.zeros_like(params_b.pts)
     pts_b[_like(meta.pt_take, pts_b)] = pts_part
     return state.params.cam, pts_b[_like(point_slots, pts_b)], history
@@ -353,7 +352,7 @@ def optimize_sharded(problem, kernel, cfg: LMConfig, params: Params,
 
 def optimize_auto(problem, kernel, cfg: LMConfig, params: Params,
                   obs: Observations, *, verbose: bool = False,
-                  track_pad: int = 256, device="cuda"):
+                  device="cuda"):
     """Production LM driver: the bucketed single-device solve, or the
     point-local solve over every rank of the default process group when
     there are several (``ISFM_NO_SHARD=1`` opts out).
@@ -362,11 +361,10 @@ def optimize_auto(problem, kernel, cfg: LMConfig, params: Params,
     [T, 3] in their original (pre-bucketing) order, on ``device``."""
     if shard_world() > 1:
         return optimize_sharded(problem, kernel, cfg, params, obs,
-                                verbose=verbose, track_pad=track_pad,
-                                device=device)
+                                verbose=verbose, device=device)
     with span("optimize_auto bucketize"):
-        params_b, obs_b, buckets, point_slots = bucketize_problem(
-            params, obs, track_pad=track_pad)
+        params_b, obs_b, buckets, point_slots = bucketize_problem(params,
+                                                                  obs)
     with span("optimize_auto lm loop"):
         state, history = optimize(problem, kernel, cfg, params_b, obs_b,
                                   verbose=verbose, buckets=buckets,

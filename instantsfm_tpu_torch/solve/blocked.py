@@ -21,6 +21,7 @@ import torch
 from instantsfm_tpu_torch.utils.debug import span
 
 BUCKET_SIZES = (2, 4, 8, 16, 32, 64, 128, 256, 512)
+TRACK_PAD = 256     # default multiple of each bucket's padded track count
 
 
 class BucketedProblem(NamedTuple):
@@ -46,7 +47,7 @@ def _bucket_len(n: int) -> int:
 
 
 def bucketize(cam_idx, pt_idx, data, valid, scales, scales_free,
-              num_points: int, track_pad: int = 256) -> BucketedProblem:
+              num_points: int, track_pad: int = TRACK_PAD) -> BucketedProblem:
     """Inputs are the flat (sorted-by-point) observation arrays.
 
     ``track_pad`` rounds each bucket's track count up to a multiple (padded
@@ -133,7 +134,7 @@ def bucketize(cam_idx, pt_idx, data, valid, scales, scales_free,
         obs_order=obs_order, obs_dest=dest)
 
 
-def bucketize_problem(params, obs, track_pad: int = 256,
+def bucketize_problem(params, obs, track_pad: int = TRACK_PAD,
                       return_mapping: bool = False):
     """(Params, Observations) -> bucketed versions + metadata, on the device
     the inputs live on.

@@ -318,16 +318,6 @@ def test_runner_three_steps_match_jax(scene, tmp_path):
     assert rel.max() <= 1e-3, rel.max()
 
 
-@pytest.mark.parametrize("option", ["distributed"])
-def test_runner_rejects_unported_options(option, tmp_path):
-    """No option is left outside the port: ``distributed``, the last one
-    (``gs/distributed.py``), passes the option checks, and the Runner goes
-    on to read its scene."""
-    with pytest.raises(FileNotFoundError, match="nonexistent"):
-        Runner(GSConfig(data_dir="/nonexistent", result_dir=str(tmp_path),
-                        **{option: True}), device="cpu")
-
-
 def test_cli_trains_evaluates_and_checkpoints(scene, tmp_path):
     """Train, eval and checkpoint, then the PLY from the final checkpoint
     (one vertex per alive gaussian) and an ellipse trajectory (an npz of
