@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
      source, all started together (timed);
   3. kernel parity: each kernel against its plain torch version on the card
      (K1 at the shapes the solvers give it and at 4,000 cameras, past its
-     shared-memory camera table, float32 and float64; K2/K3 on
+     shared-memory camera table, float32 and float64, within ``K1_TOL`` of
+     each camera's sum of its absolute chain; K2/K3 on
      hand-built tiles that reach every branch and on tiles whose gaussians
      sit on the edges of the kernels' cull), with timings (CUDA events)
      and the analytic memory/arithmetic bound;
@@ -41,7 +42,19 @@ Phases (any failure exits non-zero):
      first such input (one ``SFM_RETRI`` line: seconds of retriangulation
      and pruning, refinement rounds and changed shares, clusters, K1
      launches per stage, the PC > 8 plain-route calls);
-  7. pixels to poses: ``tests/test_pixels_e2e.py``'s scene (four textured
+  7. the mapper at scale (``SCALE`` line): ``bench_e2e.py``'s config 4, a
+     ring of 2,000 SIMPLE_RADIAL images, 300k points, each image matched
+     with the next 10, at most 2,000 matches a pair (setup timed apart),
+     through the mapper (float32) and ``write_reconstruction``, scored by
+     the port's ``eval`` (``align`` and ``benchmark.evaluate_scene``):
+     2,000/2,000 registered, mean rotation error <= 0.5 degree, max <= 1,
+     ATE max < 1% of the extent; K1 must launch in GP (shared camera table,
+     PC = 3) and in BA (PC = 8, C = 2,000: the global-atomic branch) and
+     match its plain version on the first input each gave it; errors after
+     rotation averaging, GP and each BA round, stage seconds, LM
+     iterations, K1 launches by stage and branch, AUCs, peak device and
+     host memory;
+  8. pixels to poses: ``tests/test_pixels_e2e.py``'s scene (four textured
      planes) rendered by the port's rasterizer in 16 views at 480x360 and
      written as PNG, then ``cli.feat`` (SIFT and matching on the card) and
      ``cli.sfm`` on the card; ``sparse/0`` must register 15 of 16 views
@@ -51,12 +64,20 @@ Phases (any failure exits non-zero):
      loss must fall, with PSNR > 12 at step 50 and K2/K3 launched once a
      training step (``PIXELS`` line: extraction, matching, mapper and 3DGS
      seconds, K2/K3 launches);
-  8. feature throughput: 200 views of that scene at 640x480,
+  9. the tail on a copy of those views (``TAIL`` line): ``cli.demo``
+     (features and SfM on the card, ``view.html`` with one camera per
+     registered view), ``cli.sfm --record_recon`` (4 snapshots: GP, then
+     three BA rounds; the model within phase 8's bars), ``cli.vis`` on the
+     newest session (the video where matplotlib is installed, else its
+     ImportError naming matplotlib), ``vis.pose3d --export_html``,
+     pair-inlier scoring of the database's view graph and the fisheye
+     undistorter on a seeded OPENCV_FISHEYE model, each card against CPU;
+  10. feature throughput: 200 views of that scene at 640x480,
      ``generate_database`` with 4,096 keypoints an image and exhaustive
      matching, 19,900 pairs (``FEAT`` line: extraction and matching
      seconds, peak device memory, matching's bound), then one mapper pass
      over that database (registered views and pose errors, no bar);
-  9. learned front-ends (``LEARNED`` line): seeded random weights (SuperPoint,
+  11. learned front-ends (``LEARNED`` line): seeded random weights (SuperPoint,
      DISK and LightGlue at their published widths, DeDoDe at its
      ``random_weights`` widths) written as npz and found by the handler's
      environment variables; ``superpoint+lightglue`` on 40 views at 640x480
@@ -66,13 +87,13 @@ Phases (any failure exits non-zero):
      JAX tests' LightGlue bars at M = 2,048 (identity >= 95%, permutation
      >= 90%); extraction and matching seconds, LightGlue's FLOP and bound,
      peak device memory;
-  10. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
+  12. 3DGS path: a seeded scene of 100k SfM points and 24 views at 800x608
      (photos rendered by the port's rasterizer with SH degree 3, written as
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
      saves a checkpoint; launch counters prove every step went through K2
      and K3;
-  11. 3DGS options on that scene (``GS_OPTS`` line): run A trains 40 steps
+  13. 3DGS options on that scene (``GS_OPTS`` line): run A trains 40 steps
      with ``pose_opt``, ``app_opt``, the bilateral grid, the depth loss,
      ``visible_adam``, PNG compression and pose noise, with LPIPS (seeded
      random weights behind ``INSTANTSFM_LPIPS_WEIGHTS``) at the step-40
@@ -89,26 +110,26 @@ Phases (any failure exits non-zero):
      losses, pose deltas and bilateral grids must agree.  K2/K3 are then
      held against their plain versions on one view's real tiles of the GS
      phase;
-  12. multi-device paths (``DIST`` line; the machine has one card, and
+  14. multi-device paths (``DIST`` line; the machine has one card, and
      NCCL takes one rank a card): over a world-1 NCCL group in this
      process, one BA solve at phase 4's shape through
      ``parallel.sharded.optimize_sharded`` (the point-local partition, the
      all-reduces, K1 on the rank's buckets) against the single-device
      solve on the same input, one GP step at phase 4's GP size through the
      point-local step against that phase's step, and the gaussian-sharded
-     3DGS loss and gradients on phase 10's scene (2 views) against one
+     3DGS loss and gradients on phase 12's scene (2 views) against one
      device's, then one distributed train step; K1 is held against its
      plain version on the first input of the sharded BA and GP, K2/K3 on
      the distributed step's first view, and each must have launched.
      Then two ranks on the card over gloo (this script with
      ``--dist-worker``, two processes) run ``cli.feat`` and ``cli.sfm`` on
-     phase 7's views: extraction, matching and relative pose shared, GP
+     phase 8's views: extraction, matching and relative pose shared, GP
      and BA point-sharded, rank 0 writing; the database must hold phase
-     7's images, keypoint counts, matched and verified pairs, and its
+     8's images, keypoint counts, matched and verified pairs, and its
      matches but for ``DIST_MATCH_SHARE`` of them, the model must register
-     as many views as phase 7's and meet its bars, and K1 must launch on
+     as many views as phase 8's and meet its bars, and K1 must launch on
      both ranks;
-  13. prints the kernels line, the card line and, last, the ok line.
+  15. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -119,6 +140,7 @@ import dataclasses
 import json
 import math
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -130,6 +152,7 @@ import torch
 
 from instantsfm_tpu_torch import config, convert
 from instantsfm_tpu_torch.config import Config
+from instantsfm_tpu_torch.eval import align, benchmark
 from instantsfm_tpu_torch.features import (dedode, disk, handler, lightglue,
                                            superpoint)
 from instantsfm_tpu_torch.gs import composite as k23
@@ -280,33 +303,55 @@ def k1_bound(W, V_inv, x, buckets):
             max(unfused / HBM_BYTES_PER_S, t_ops) * 1e3)
 
 
-# K1's tolerance, per camera entry, relative to SUM_{o: cam_o = c} |u_o|
-# (k1_abs_sums): a camera's sum of u cancels, so max|y| is no scale.  The
-# kernel sums tracks by a butterfly and cameras with atomics in an order
-# that changes from run to run, the plain version by reshape-sums and
-# index_add_: float sums of up to 2048 track rows and ~2000 camera rows
+# K1's tolerance, per camera entry, relative to the camera sum of the
+# absolute chain |W_o| |V_inv_p| SUM_{k in track p} |W_k|^T |x[cam_k]|
+# (k1_abs_sums): the standard bound on the rounding of every sum in the
+# chain, including a long track's sum t_p = SUM_k W_k^T x[cam_k], whose
+# terms can cancel.  The kernel sums tracks by a butterfly and cameras with
+# atomics in an order that changes from run to run, the plain version by
+# reshape-sums and index_add_: float sums of up to 2048 track rows and
+# thousands of camera rows.  The sum of |u| (k1_u_sums) is the old scale,
+# which a track's cancellation leaves below the rounding: it is printed
+# beside the bound's ratio and no longer tested.
 K1_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 
 
 def k1_abs_sums(W, V_inv, x, cam_idx, pt_idx, buckets):
-    """[C, PC]: the sum of |u_o| over each camera's rows (plain version)."""
+    """[C, PC]: the camera sum of the absolute per-row chain, the plain
+    version on |W|, |V_inv| and |x| summed by camera."""
+    u = k1.schur_wchain_rows_reference(W.abs(), V_inv.abs(), x.abs(),
+                                       cam_idx, pt_idx, buckets)
+    return u.new_zeros(x.shape).index_add_(0, cam_idx, u)
+
+
+def k1_u_sums(W, V_inv, x, cam_idx, pt_idx, buckets):
+    """[C, PC]: the sum of |u_o| over each camera's rows (the old scale)."""
     u = k1.schur_wchain_rows_reference(W, V_inv, x, cam_idx, pt_idx,
                                        buckets).abs()
     return u.new_zeros(x.shape).index_add_(0, cam_idx, u)
 
 
-def k1_check(name, got, want, abs_sums):
+def k1_check(name, got, want, abs_sums, u_sums=None):
     """Raise unless |got - want| <= K1_TOL * abs_sums at every entry.
-    Returns (max abs error, max of error / abs_sums)."""
+    Returns (max abs error, max of error / abs_sums, max of error / u_sums
+    or None without ``u_sums``, the bound's reach: the least
+    K1_TOL * abs_sums / |want| over the entries with want != 0, the
+    relative error the bound allows where it is tightest)."""
     tol = K1_TOL[got.dtype]
     err = (got - want).abs()
     bad = ~(err <= tol * abs_sums)
     if bad.any() or not torch.isfinite(got).all():
         raise AssertionError(
             f"{name}: {int(bad.sum())} of {bad.numel()} entries beyond {tol} "
-            f"of their camera's sum of |u|, max abs err {err.max().item()}")
-    rel = torch.where(abs_sums > 0, err / abs_sums, torch.zeros_like(err))
-    return err.max().item(), rel.max().item()
+            f"of their camera's absolute chain, max abs err "
+            f"{err.max().item()}")
+    ratio = lambda s: torch.where(s > 0, err / s,
+                                  torch.zeros_like(err)).max().item()
+    nz = want != 0
+    reach = ((tol * abs_sums[nz] / want[nz].abs()).min().item()
+             if nz.any() else None)
+    return (err.max().item(), ratio(abs_sums),
+            None if u_sums is None else ratio(u_sums), reach)
 
 
 def k1_case(name, lengths, C, PC, dtype, device, reps):
@@ -317,8 +362,9 @@ def k1_case(name, lengths, C, PC, dtype, device, reps):
     torch.cuda.synchronize()
     if got.shape != (C, PC) or want.shape != (C, PC):
         raise AssertionError(f"K1 {name}: bad output {tuple(got.shape)}")
-    err, rel_err = k1_check(f"K1 {name}", got, want,
-                            k1_abs_sums(W, V_inv, x, cam, pt, buckets))
+    err, rel_chain, rel_err, reach = k1_check(
+        f"K1 {name}", got, want, k1_abs_sums(W, V_inv, x, cam, pt, buckets),
+        k1_u_sums(W, V_inv, x, cam, pt, buckets))
     # what the kernel absorbs (the camera sum of u), and the matvec it sits in
     u = k1.schur_wchain_rows_reference(W, V_inv, x, cam, pt, buckets)
     g = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -337,7 +383,8 @@ def k1_case(name, lengths, C, PC, dtype, device, reps):
                rows=W.shape[0], points=V_inv.shape[0], cams=C,
                L=sorted({b[3] for b in buckets}),
                branch="shared" if k1.shared_table(C, PC, dtype) else "global",
-               max_abs_err=err, max_err_over_abs_sum=rel_err,
+               max_abs_err=err, max_err_over_abs_chain=rel_chain,
+               max_err_over_abs_sum=rel_err, min_tol_chain_over_abs_y=reach,
                max_abs_y=want.abs().max().item(),
                ms=time_ms(kernel, reps, flush),
                ms_warm_l2=time_ms(kernel, reps),
@@ -1020,28 +1067,37 @@ def run_gp_step(device, gt):
 # ------------------------------------------------------------ SfM path
 
 SFM_CAMS, SFM_POINTS, SFM_WINDOW = 200, 20_000, 12   # bench_e2e.py:26-28
+RING_CAMERA = (cm.SIMPLE_RADIAL, 640, 480, (520.0, 320.0, 240.0, 0.01))
+
+
+def ring_image_name(i):
+    return f"img{i:04d}.jpg"
 
 
 def write_ring_db(dbpath, num_cams=SFM_CAMS, num_pts=SFM_POINTS,
                   window=SFM_WINDOW, seed=SEED, match_noise=0.4,
-                  outlier_frac=0.08, vis_angle=0.9):
+                  outlier_frac=0.08, vis_angle=0.9, scene_scale=1.0,
+                  max_matches_per_pair=0):
     """A seeded COLMAP database at the ETH3D-indoor scale (the scene of
-    ``bench_e2e.py::build_scene_db``, in numpy): ``num_cams`` SIMPLE_RADIAL
-    cameras (f 520, k1 0.01, 640x480) on a ring of radius 8 looking at a
-    6-unit cube of ``num_pts`` points, each camera seeing the points within
+    ``bench_e2e.py::build_scene_db``, in numpy, with its draws in its
+    order, so a seed writes that function's database): ``num_cams``
+    SIMPLE_RADIAL cameras (f 520, k1 0.01, 640x480) on a ring of radius
+    8 * ``scene_scale`` looking at a cube of ``num_pts`` points within
+    +-3 * ``scene_scale``, each camera seeing the points within
     ``vis_angle`` radians of its own bearing; keypoints are the projections
     plus ``match_noise`` px of noise; each camera is matched with the next
-    ``window`` on the ring (pairs with < 30 shared points are skipped), with
-    ``outlier_frac`` of every pair's matches redirected to random keypoints,
-    all pairs CALIBRATED.  Returns the ground truth (world->cam xyzw qvec,
-    tvec, centers) and the pair and match counts."""
+    ``window`` on the ring (pairs with < 30 shared points are skipped), at
+    most ``max_matches_per_pair`` of a pair's shared points drawn when
+    nonzero, with ``outlier_frac`` of every pair's matches redirected to
+    random keypoints, all pairs CALIBRATED.  Returns the ground truth
+    (world->cam xyzw qvec, tvec, centers) and the pair and match counts."""
     rng = np.random.default_rng(seed)
-    f_px, cx, cy, k1_ = 520.0, 320.0, 240.0, 0.01
-    width, height = 640, 480
+    model_id, width, height, (f_px, cx, cy, k1_) = RING_CAMERA
     angles = np.linspace(0, 2 * np.pi, num_cams, endpoint=False)
-    centers = np.stack([8.0 * np.cos(angles), 8.0 * np.sin(angles),
+    radius = 8.0 * scene_scale
+    centers = np.stack([radius * np.cos(angles), radius * np.sin(angles),
                         1.0 + 0.3 * rng.standard_normal(num_cams)], -1)
-    points = rng.uniform(-3.0, 3.0, (num_pts, 3))
+    points = rng.uniform(-3.0 * scene_scale, 3.0 * scene_scale, (num_pts, 3))
     pt_angle = np.arctan2(points[:, 1], points[:, 0])
     Rs = np.stack([ring_rotation(c) for c in centers])
     qvec = lie.matrix_to_quat(torch.as_tensor(Rs)).numpy()
@@ -1049,24 +1105,30 @@ def write_ring_db(dbpath, num_cams=SFM_CAMS, num_pts=SFM_POINTS,
 
     kp, idx_of = [], []
     for i in range(num_cams):
-        xyz = points @ Rs[i].T + tvec[i]
+        # the points near the camera's bearing by a cheap wrapped angle
+        # (within 1e-15 rad of the exact test's), then the exact tests on
+        # those alone: the same points at a fraction of the cost
+        near = np.abs((pt_angle - angles[i] + np.pi) % (2 * np.pi) - np.pi)
+        cand = np.nonzero(near < vis_angle + 1e-9)[0]
+        xyz = points[cand] @ Rs[i].T + tvec[i]
         uv = xyz[:, :2] / (xyz[:, 2:3] + 1e-12)
         xy = uv * (1.0 + k1_ * np.sum(uv * uv, 1, keepdims=True)) * f_px \
             + np.array([cx, cy])
-        dang = np.abs(np.angle(np.exp(1j * (pt_angle - angles[i]))))
+        dang = np.abs(np.angle(np.exp(1j * (pt_angle[cand] - angles[i]))))
         vis = ((xyz[:, 2] > 0.5) & (dang < vis_angle)
                & (xy[:, 0] > 0) & (xy[:, 0] < width)
                & (xy[:, 1] > 0) & (xy[:, 1] < height))
-        idx = np.nonzero(vis)[0]
-        kp.append(xy[idx] + match_noise * rng.standard_normal((len(idx), 2)))
+        idx = cand[vis]
+        xy = xy[vis]
+        kp.append(xy + match_noise * rng.standard_normal((len(idx), 2)))
         idx_of.append(idx.astype(np.int32))
 
     n_pairs = n_matches = 0
     with ColmapDatabase.connect(dbpath) as db:
         db.create_tables()
-        cam_id = db.add_camera(cm.SIMPLE_RADIAL, width, height,
+        cam_id = db.add_camera(model_id, width, height,
                                [f_px, cx, cy, k1_], prior_focal=True)
-        img_ids = [db.add_image(f"img{i:04d}.jpg", cam_id)
+        img_ids = [db.add_image(ring_image_name(i), cam_id)
                    for i in range(num_cams)]
         for i in range(num_cams):
             db.add_keypoints(img_ids[i], kp[i])
@@ -1082,6 +1144,10 @@ def write_ring_db(dbpath, num_cams=SFM_CAMS, num_pts=SFM_POINTS,
                     continue
                 fi = fi_of_j[both]
                 fj = np.nonzero(both)[0].astype(np.int32)
+                if max_matches_per_pair and len(fi) > max_matches_per_pair:
+                    keep = rng.choice(len(fi), max_matches_per_pair,
+                                      replace=False)
+                    fi, fj = fi[keep], fj[keep]
                 # every ring edge once, lower image id first
                 a, b = (j, i) if j < i else (i, j)
                 m = np.stack([fj, fi] if j < i else [fi, fj], 1)
@@ -1174,13 +1240,17 @@ def k1_sfm_check(stage, args, device):
     torch.cuda.synchronize()
     if not want.any():
         raise AssertionError(f"K1 on the mapper's {stage} input: y is 0")
-    err, rel_err = k1_check(f"K1 on the mapper's {stage} input", got, want,
-                            k1_abs_sums(*args))
+    err, rel_chain, rel_err, reach = k1_check(
+        f"K1 on the mapper's {stage} input", got, want, k1_abs_sums(*args),
+        k1_u_sums(*args))
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
     return dict(PC=W.shape[1], rows=W.shape[0], points=V_inv.shape[0],
                 cams=x.shape[0], L=sorted({b[3] for b in buckets}),
-                max_abs_err=err, max_err_over_abs_sum=rel_err,
+                branch="shared" if k1.shared_table(
+                    x.shape[0], W.shape[1], W.dtype) else "global",
+                max_abs_err=err, max_err_over_abs_chain=rel_chain,
+                max_err_over_abs_sum=rel_err, min_tol_chain_over_abs_y=reach,
                 max_abs_y=want.abs().max().item(),
                 ms=time_ms(lambda: k1.schur_wchain(*args), 20, flush),
                 plain_ms=time_ms(lambda: k1.schur_wchain_reference(*args), 5,
@@ -1405,6 +1475,212 @@ def run_sfm_retri(device, dbpath, gt):
     return rec
 
 
+# ------------------------------------------------------------ scale path
+
+# bench_e2e.py's config 4, the JAX package's 2,000-image scene
+# (tools/probe_accuracy.py:44-45)
+SCALE_2K = dict(num_cams=2000, num_pts=300_000, vis_angle=0.06, window=10,
+                scene_scale=4.0, max_matches_per_pair=2000)
+# the bars: 0.5 degree is the mean rotation target PERF_NOTES.md:20 records
+# for this scene; 1 degree and 1% of the extent are tests/test_e2e.py's
+SCALE_ROT_MEAN_DEG, SCALE_ROT_MAX_DEG, SCALE_ATE_MAX = 0.5, 1.0, 0.01
+def scale_errors(q, centers, gt, idx):
+    """(rotation errors in degrees, ATE as a share of the extent or None
+    without ``centers``) of the world->cam xyzw quaternions ``q`` of images
+    ``idx`` against the ground truth, through the port's ``eval.align``."""
+    R_est = lie.quat_to_matrix(torch.as_tensor(q, dtype=torch.float64))
+    R_gt = lie.quat_to_matrix(torch.as_tensor(gt["q"][idx]))
+    rot = align.rotation_angles_deg(R_est.numpy(), R_gt.numpy())
+    if centers is None:
+        return rot, None
+    c_gt = gt["centers"][idx]
+    ate = align.absolute_translation_errors(np.asarray(centers, np.float64),
+                                            c_gt)
+    return rot, ate / float(np.linalg.norm(c_gt.max(0) - c_gt.min(0)))
+
+
+def error_summary(rot, ate=None):
+    out = dict(images=int(len(rot)), rot_err_deg_mean=float(rot.mean()),
+               rot_err_deg_max=float(rot.max()))
+    if ate is not None:
+        out.update(ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()))
+    return out
+
+
+def write_ring_gt_model(path, gt):
+    """The ring's ground truth as a COLMAP model (poses only), named as
+    ``write_ring_db`` names its images."""
+    model_id, width, height, params = RING_CAMERA
+    cams = [cmio.ModelCamera(1, model_id, width, height, np.array(params))]
+    imgs = [cmio.ModelImage(i + 1, np.r_[q[3], q[:3]], gt["t"][i], 1,
+                            ring_image_name(i), np.zeros((0, 2)),
+                            np.zeros(0, np.int64))
+            for i, q in enumerate(gt["q"])]
+    cmio.write_model(cams, imgs, [], path)
+
+
+def run_scale(device, root, scene=SCALE_2K):
+    """The mapper on a ring scene of ``bench_e2e.py`` at a size its users
+    run (``SCALE_2K``: 2,000 images, where BA's K1 sums cameras with global
+    atomics): database written (setup, timed apart), read,
+    ``solve_global_mapper`` (float32), ``write_reconstruction``,
+    ``read_model``; then scored through the port's ``eval``: rotation and
+    absolute errors against the ring's ground truth and
+    ``benchmark.evaluate_scene`` against a model written from it.  K1 is
+    held against its plain version on the first input GP and BA gave it;
+    its launches are counted by stage and camera-sum branch; the poses are
+    scored after rotation averaging, GP and each BA round.  Returns the
+    record; raises after printing it if a check fails."""
+    n = scene["num_cams"]
+    dbpath = os.path.join(root, "database.db")
+    t0 = time.perf_counter()
+    gt, n_pairs, n_matches = write_ring_db(dbpath, **scene)
+    setup_s = time.perf_counter() - t0
+    log(f"SCALE scene: {json.dumps(scene)}: {n_pairs} pairs, {n_matches} "
+        f"matches ({setup_s:.1f} s to write)")
+
+    done, first_input, launches, errors_at, rounds = set(), {}, {}, {}, []
+    gp_images = {}
+
+    def hook(name, cameras, images, tracks):
+        done.add(name)
+        reg = np.nonzero(images.registered)[0]
+        if name == "rotation_averaging":
+            errors_at[name] = error_summary(
+                *scale_errors(images.qvec[reg], None, gt, reg))
+        elif name in ("global_positioning", "bundle_adjustment"):
+            errors_at[name] = error_summary(*scale_errors(
+                images.qvec[reg], images.centers()[reg], gt, reg))
+            gp_images.setdefault("idx", reg)
+
+    launch = block_lm.schur_wchain
+
+    def k1_spy(*args):
+        # K1 runs only in GP and BA: before GP's hook, a call is GP's.
+        # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
+        stage = ("bundle_adjustment" if "global_positioning" in done
+                 else "global_positioning")
+        if stage not in first_input and bool(args[2].any()):
+            first_input[stage] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        branch = ("shared" if k1.shared_table(args[2].shape[0],
+                                              args[0].shape[1], args[0].dtype)
+                  else "global")
+        before = k1.schur_wchain.launches
+        out = launch(*args)
+        key = f"{stage}/{branch}"
+        launches[key] = launches.get(key, 0) + k1.schur_wchain.launches - before
+        return out
+
+    ba_optimize = ba.optimize
+
+    def ba_round(*args, **kwargs):
+        state, history = ba_optimize(*args, **kwargs)
+        cam = state.params.cam
+        rounds.append((cam["q"].detach().double().cpu().numpy(),
+                       cam["t"].detach().double().cpu().numpy()))
+        return state, history
+
+    debug.drain_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_lm.schur_wchain, ba.optimize = k1_spy, ba_round
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
+    try:
+        t_start = time.perf_counter()
+        view_graph, cameras, images, feature_name = read_colmap_database(
+            dbpath)
+        db_read_s = time.perf_counter() - t_start
+        cameras, images, tracks, timings = solve_global_mapper(
+            view_graph, cameras, images, Config(feature_name),
+            dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
+            device=device)
+        t0 = time.perf_counter()
+        sparse = os.path.join(root, "sparse")
+        write_reconstruction(sparse, cameras, images, tracks)
+        write_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t_start
+    finally:
+        block_lm.schur_wchain, ba.optimize = launch, ba_optimize
+    k1_launches = k1.schur_wchain.launches
+    k1_plain_calls = k1.schur_wchain.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = debug.drain_stats()
+    t0 = time.perf_counter()
+    cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(sparse, "0"))
+    read_model_s = time.perf_counter() - t0
+
+    idx = gp_images.get("idx", np.zeros(0, np.int64))
+    for r, (q, t) in enumerate(rounds):
+        if len(q) == len(idx):
+            c = lie.camera_center(torch.as_tensor(q), torch.as_tensor(t))
+            errors_at[f"ba_round_{r}"] = error_summary(
+                *scale_errors(q, c.numpy(), gt, idx))
+    reg = np.nonzero(images.registered)[0]
+    rot, ate = scale_errors(images.qvec[reg], images.centers()[reg], gt, reg)
+    t0 = time.perf_counter()
+    gt_dir = os.path.join(root, "sparse_gt")
+    write_ring_gt_model(gt_dir, gt)
+    scores = benchmark.evaluate_scene(gt_dir, sparse, device=device)
+    eval_s = time.perf_counter() - t0
+    # launches made here to compare K1 with its plain version are not counted
+    k1_rec = {stage: k1_sfm_check(stage, args, device)
+              for stage, args in first_input.items()}
+    first_input.clear()
+    rec = dict(
+        scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
+        db_read_s=db_read_s, stage_s=timings, write_s=write_s,
+        total_s=total_s, read_model_s=read_model_s, eval_s=eval_s,
+        registered=int(len(reg)), tracks=int(tracks.num_tracks),
+        observations=int(tracks.num_observations),
+        model_images=len(imgs_m), model_points=len(pts_m),
+        gp_lm_iters=stats.get("gp_lm_iters"),
+        ba_lm_iters=stats.get("ba_lm_iters"),
+        pcg_iters_total=sum(stats.get("pcg_iters", [])),
+        k1_launches=launches, k1_launches_total=k1_launches,
+        k1_plain_calls=k1_plain_calls, k1=k1_rec,
+        rot_err_deg_mean=float(rot.mean()), rot_err_deg_max=float(rot.max()),
+        ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()),
+        errors_by_stage=errors_at, eval=scores,
+        peak_device_gb=peak_gb,
+        peak_host_rss_gb=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6,
+        card=card_line())
+    log("SCALE " + json.dumps(rec))
+    ba_first = k1_rec.get("bundle_adjustment", {})
+    checks = {
+        f"{n}/{n} images registered": rec["registered"] == n,
+        "model read back has every image": len(imgs_m) == n,
+        f"mean rotation error <= {SCALE_ROT_MEAN_DEG} degree":
+            rec["rot_err_deg_mean"] <= SCALE_ROT_MEAN_DEG,
+        f"max rotation error <= {SCALE_ROT_MAX_DEG} degree":
+            rec["rot_err_deg_max"] <= SCALE_ROT_MAX_DEG,
+        "max ATE < 1% of the extent": rec["ate_rel_max"] < SCALE_ATE_MAX,
+        "evaluate_scene registers every image":
+            scores["num_registered"] == n,
+        "K1 launched in global positioning": any(
+            k.startswith("global_positioning/") and v > 0
+            for k, v in launches.items()),
+        "K1 launched in bundle adjustment": any(
+            k.startswith("bundle_adjustment/") and v > 0
+            for k, v in launches.items()),
+        "K1 launched only in those stages":
+            k1_launches == sum(launches.values()),
+        "K1 held against its plain version on a GP and a BA input":
+            set(k1_rec) == {"global_positioning", "bundle_adjustment"},
+    }
+    if scene is SCALE_2K:
+        checks["BA's first K1 input takes the global-atomic branch"] = (
+            ba_first.get("branch") == "global" and not k1.shared_table(
+                ba_first.get("cams", 0), 8, torch.float32))
+        checks["GP's first K1 input takes the shared-table branch"] = (
+            k1_rec.get("global_positioning", {}).get("branch") == "shared")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"SCALE failed: {failed}")
+    return rec
+
+
 # ------------------------------------------------------------ pixels path
 
 PIX_VIEWS, PIX_W, PIX_H, PIX_F = 16, 480, 360, 400.0   # test_pixels_e2e.py
@@ -1607,6 +1883,192 @@ def run_pixels(device, work):
     if failed:
         raise AssertionError(f"pixels-to-poses path failed: {failed}")
     return rec, gt
+
+
+TAIL_FISHEYE = (300.0, 300.0, 0.05, -0.01, 0.001, 0.0)   # fx fy k1-k4
+TAIL_TIE_SHARE = 1e-4   # pair-inlier masks, card vs CPU: at most this share
+                        # of matches differing (errors on a threshold)
+
+
+def html_payload(path):
+    """The JSON scene that ``cli.demo.write_html_view`` embeds."""
+    with open(path) as f:
+        return json.loads(f.read().split("const data = ", 1)[1]
+                          .split(";\n", 1)[0])
+
+
+def tail_pair_inliers(dbpath, device):
+    """``pair_inliers.image_pair_inliers_count`` on a database's view graph,
+    each pair's model estimated by the mapper's relative-pose stage on the
+    card, rescored from the same inputs on the card and on the CPU."""
+    from instantsfm_tpu_torch.pipeline import pair_inliers
+
+    vg, cams, imgs, name = read_colmap_database(dbpath)
+    preprocess.update_image_pairs_config(vg, cams, imgs)
+    preprocess.decompose_relpose(vg, cams, imgs)
+    relpose.undistort_images(cams, imgs, device=device)
+    relpose.estimate_relative_pose(vg, cams, imgs, device=device)
+    out = dict(pairs=int(vg.valid.sum()),
+               configs=np.bincount(vg.config[vg.valid]).tolist(),
+               relpose_inliers=int(vg.inlier_mask.sum()))
+    masks = {}
+    for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        graph = copy.deepcopy(vg)
+        t0 = time.perf_counter()
+        pair_inliers.image_pair_inliers_count(
+            graph, cams, imgs, Config(name).INLIER_THRESHOLD_OPTIONS,
+            device=dev)
+        out[f"{label}_s"] = time.perf_counter() - t0
+        masks[label] = graph.inlier_mask
+    out.update(matches=int(len(masks["cpu"])),
+               inliers=int(masks["cpu"].sum()),
+               differing=int((masks["card"] != masks["cpu"]).sum()))
+    return out
+
+
+def tail_fisheye(work, names, device):
+    """``undistort_fisheye_images`` on a seeded OPENCV_FISHEYE model of the
+    views ``names`` in ``work/images``, on the card and on the CPU."""
+    from instantsfm_tpu_torch.pipeline import fisheye_undistorter as fe
+
+    fx, fy, *k = TAIL_FISHEYE
+    params = np.array([fx, fy, PIX_W / 2, PIX_H / 2, *k])
+    rng = np.random.default_rng(SEED)
+    sparse = os.path.join(work, "fisheye", "sparse")
+    cmio.write_model(
+        [cmio.ModelCamera(1, cm.OPENCV_FISHEYE, PIX_W, PIX_H, params)],
+        [cmio.ModelImage(i + 1, np.array([1.0, 0, 0, 0]),
+                         rng.standard_normal(3), 1, name, np.zeros((0, 2)),
+                         np.zeros(0, np.int64))
+         for i, name in enumerate(names)], [], sparse)
+    runs = (("card", device), ("cpu", torch.device("cpu")))
+    grids = {label: fe.remap_grid(cm.OPENCV_FISHEYE, cm.pad_params(params),
+                                  PIX_W, PIX_H, device=dev)
+             for label, dev in runs}
+    outs, secs, geo = {}, {}, {}
+    for label, dev in runs:
+        t0 = time.perf_counter()
+        outs[label] = fe.undistort_fisheye_images(
+            sparse, os.path.join(work, "images"),
+            os.path.join(work, "fisheye", label, "undist"),
+            log=lambda *a: None, device=dev)
+        secs[label] = time.perf_counter() - t0
+        with open(os.path.join(work, "fisheye", label, "geo_locs.txt"),
+                  "rb") as f:
+            geo[label] = f.read()
+    return dict(
+        images=len(outs["card"]), card_s=secs["card"], cpu_s=secs["cpu"],
+        grid_max_diff_px=float(np.abs(grids["card"] - grids["cpu"]).max()),
+        max_level_diff=max(int(np.abs(outs["card"][i].astype(int)
+                                      - outs["cpu"][i].astype(int)).max())
+                           for i in outs["cpu"]),
+        same_images=sorted(outs["card"]) == sorted(outs["cpu"]),
+        geo_locs_equal=geo["card"] == geo["cpu"])
+
+
+def run_tail(device, pix_work, pix_gt):
+    """The tail of the port on a copy of the pixels phase's 16 views:
+    ``cli.demo`` (features and SfM on the card, then ``view.html``),
+    ``cli.sfm --record_recon`` on its database (a snapshot after GP and
+    after each BA round), ``cli.vis`` on the newest session (the video
+    where matplotlib is installed, else its ImportError naming
+    matplotlib), ``vis.pose3d --export_html``, pair-inlier scoring and the
+    fisheye undistorter, each on the card against the CPU.  Returns the
+    TAIL record; raises after printing it if a check fails."""
+    import glob
+    import importlib.util
+
+    from instantsfm_tpu_torch.cli import demo as cli_demo
+    from instantsfm_tpu_torch.cli import sfm as cli_sfm
+    from instantsfm_tpu_torch.cli import vis as cli_vis
+    from instantsfm_tpu_torch.vis import pose3d
+    from instantsfm_tpu_torch.vis.visualizer import OfflinePlayer
+
+    work = os.path.join(pix_work, "tail")
+    shutil.copytree(os.path.join(pix_work, "images"),
+                    os.path.join(work, "images"))
+    sparse0 = os.path.join(work, "sparse", "0")
+    t0 = time.perf_counter()
+    rc_demo = cli_demo.main(["--data_path", work])
+    demo_s = time.perf_counter() - t0
+    demo_views = len(html_payload(os.path.join(work, "view.html"))["cameras"])
+    demo_registered = len(cmio.read_model(sparse0)[1])
+
+    t0 = time.perf_counter()
+    rc_rec = cli_sfm.main(["--data_path", work, "--record_recon"])
+    record_s = time.perf_counter() - t0
+    n_reg, n_pts, rot, ate = model_errors(sparse0, pix_gt)
+    session = sorted(glob.glob(os.path.join(work, "record", "session_*")))[-1]
+    player = OfflinePlayer(session, sparse0, log=lambda *a: None)
+    stages = [str(player.load_step(i)["stage"]) for i in range(len(player))]
+    last = player.load_step(len(player) - 1)
+
+    video = os.path.join(work, "replay.mp4")
+    vis_argv = ["--data_path", work, "--export_video", video]
+    if importlib.util.find_spec("matplotlib") is not None:
+        vis_out = dict(rc=cli_vis.main(vis_argv),
+                       video=bool(glob.glob(os.path.join(work, "replay.*"))))
+    else:
+        gate = ""
+        try:
+            cli_vis.main(vis_argv)
+        except ImportError as e:   # the gate's own behaviour, checked below
+            gate = str(e)
+        vis_out = dict(matplotlib_gate=gate)
+    html = os.path.join(work, "pose3d.html")
+    rc_pose3d = pose3d.main(["--sparse_dir", sparse0, "--export_html", html])
+    pose3d_views = len(html_payload(html)["cameras"])
+
+    pairs = tail_pair_inliers(os.path.join(work, "database.db"), device)
+    fisheye = tail_fisheye(work, sorted(os.listdir(os.path.join(work,
+                                                                "images"))),
+                           device)
+    rec = dict(demo_s=demo_s, demo_views_in_html=demo_views,
+               demo_registered=demo_registered, record_s=record_s,
+               recorded_steps=len(player), stages=stages,
+               last_step_cameras=int(len(last["centers"])),
+               final_colors=None if player.final_colors is None
+               else int(len(player.final_colors)),
+               registered=n_reg, points=n_pts,
+               rot_err_deg_max=float(rot.max()),
+               ate_rel_max=float(ate.max()), vis=vis_out,
+               pose3d_views_in_html=pose3d_views, pair_inliers=pairs,
+               fisheye=fisheye, card=card_line())
+    log("TAIL " + json.dumps(rec))
+    checks = {
+        "cli.demo, cli.sfm and vis.pose3d exit 0":
+            rc_demo == 0 and rc_rec == 0 and rc_pose3d == 0,
+        "view.html holds one camera per registered view":
+            demo_views == demo_registered >= PIX_VIEWS - 1,
+        "4 recorded steps: GP, then three BA rounds":
+            stages == ["global_positioning"] + ["bundle_adjustment"] * 3,
+        "the last step holds every registered view":
+            rec["last_step_cameras"] == n_reg,
+        "the player recolours from the final model":
+            rec["final_colors"] == n_pts,
+        f">= {PIX_VIEWS - 1}/{PIX_VIEWS} views registered":
+            n_reg >= PIX_VIEWS - 1,
+        "more than 300 points": n_pts > 300,
+        "max ATE < 2% of the extent": rec["ate_rel_max"] < 0.02,
+        "max rotation error < 0.5 degree": rec["rot_err_deg_max"] < 0.5,
+        "cli.vis replays the session (or names matplotlib where missing)":
+            (vis_out.get("rc") == 0 and vis_out.get("video"))
+            or "matplotlib" in vis_out.get("matplotlib_gate", ""),
+        "pose3d's view holds every registered view": pose3d_views == n_reg,
+        "pair inliers: card and CPU masks equal but for threshold ties":
+            pairs["differing"] <= TAIL_TIE_SHARE * pairs["matches"]
+            and 0 < pairs["inliers"] < pairs["matches"],
+        "fisheye: every view undistorted on both": fisheye["same_images"]
+            and fisheye["images"] == PIX_VIEWS,
+        "fisheye: grids within 1e-9 px, images within one level":
+            fisheye["grid_max_diff_px"] <= 1e-9
+            and fisheye["max_level_diff"] <= 1,
+        "fisheye: the same geo_locs.txt": fisheye["geo_locs_equal"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"TAIL failed: {failed}")
+    return rec
 
 
 def match_bound(pairs, K, D=128):
@@ -3108,7 +3570,8 @@ def kernel_entry(name, source, replaces, launches, case, **extra):
                 ["seconds"], **extra)
 
 
-def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec):
+def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec,
+             scale_rec):
     main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
                      and c["dtype"] == "float32")
     f32_cases = [c for c in cases if c["dtype"] == "float32"]
@@ -3132,13 +3595,23 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec):
         max_abs_err_sfm_retri=retri_rec["k1_on_retri_pc2_input"]["max_abs_err"],
         retri_pc2_input={k: retri_rec["k1_on_retri_pc2_input"][k] for k in (
             "PC", "rows", "points", "cams", "L", "ms", "plain_ms", "bound_ms")},
+        launches_scale=scale_rec["k1_launches"],
+        scale_inputs={stage: {k: c[k] for k in (
+            "PC", "rows", "cams", "branch", "ms", "plain_ms", "bound_ms",
+            "max_abs_err", "max_err_over_abs_chain", "max_err_over_abs_sum",
+            "min_tol_chain_over_abs_y")}
+            for stage, c in scale_rec["k1"].items()},
         bound_ms_unfused=main_case["bound_ms_unfused"],
         index_add_ms=main_case["index_add_ms"],
         index_add_ms_warm_l2=main_case["index_add_ms_warm_l2"],
         matvec_ms=main_case["matvec_ms"],
         max_err_f32=max(c["max_abs_err"] for c in f32_cases),
+        max_err_over_abs_chain_f32=max(c["max_err_over_abs_chain"]
+                                       for c in f32_cases),
         max_err_over_abs_sum_f32=max(c["max_err_over_abs_sum"]
-                                     for c in f32_cases))
+                                     for c in f32_cases),
+        min_tol_chain_over_abs_y_f32=min(c["min_tol_chain_over_abs_y"]
+                                         for c in f32_cases))
 
 
 def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
@@ -3170,6 +3643,17 @@ def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
         launches_dist=dist_rec["gs"][("k2_launches", "k3_launches")[which]],
         max_rel_err_dist=dist_rec["gs"][("k2", "k3")[which]]["max_rel_err"],
         **extra)
+
+
+def first_jacfwd(device):
+    """Pay the process's first vmap(jacfwd) call, a one-time cost timed
+    apart from the stages: an add under it runs torch._refs.add, whose
+    first call imports torch._dynamo (and sympy, torch.distributed.tensor)."""
+    t0 = time.perf_counter()
+    z = torch.zeros((2, 3), device=device)
+    torch.func.vmap(lambda x: torch.func.jacfwd(lambda d: x + d)(x[0]))(z)
+    torch.cuda.synchronize()
+    log(f"first torch.func.vmap(jacfwd) call: {time.perf_counter() - t0:.3f} s")
 
 
 def main(argv=None):
@@ -3206,17 +3690,9 @@ def main(argv=None):
         for name, info in build.BUILD_INFO.items():
             f.write(f"== {name} ({info['seconds']:.1f} s)\n{info['log']}\n")
     log(f"build: {build_s:.1f} s (nvcc, sm_90a, sources built in parallel)")
-
     k1_cases = k1_parity(device)
     k23_hand = k23_parity(device)
-    # one-time cost of the process's first vmap(jacfwd) call, timed apart
-    # from the BA stage: an add under it runs torch._refs.add, whose first
-    # call imports torch._dynamo (and sympy, torch.distributed.tensor)
-    t0 = time.perf_counter()
-    z = torch.zeros((2, 3), device=device)
-    torch.func.vmap(lambda x: torch.func.jacfwd(lambda d: x + d)(x[0]))(z)
-    torch.cuda.synchronize()
-    log(f"first torch.func.vmap(jacfwd) call: {time.perf_counter() - t0:.3f} s")
+    first_jacfwd(device)
     # --profile: also print the BA stage's host spans and LM iterations
     debug.ENABLED = args.profile
     ba_rec, gt = run_ba(device)
@@ -3225,8 +3701,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
         sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)
         retri_rec = run_sfm_retri(device, dbpath, sfm_gt)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as root:
+        scale_rec = run_scale(device, root)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as pix_work:
         pix_rec, pix_gt = run_pixels(device, pix_work)
+        run_tail(device, pix_work, pix_gt)
         run_feat(device)
         run_learned(device)
         if args.profile:
@@ -3239,7 +3718,7 @@ def main(argv=None):
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec,
-                        dist_rec)] + [
+                        dist_rec, scale_rec)] + [
         k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec,
                   dist_rec)
         for which in (0, 1)]

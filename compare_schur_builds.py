@@ -188,7 +188,7 @@ def inputs(npts, C, PC):
 
 def compare(name, npts, C, PC, src, lib, log, flush):
     W, V_inv, x, cam, pt, buckets = inputs(npts, C, PC)
-    abs_sums = cs.k1_abs_sums(W, V_inv, x, cam, pt, buckets)
+    abs_sums = cs.k1_u_sums(W, V_inv, x, cam, pt, buckets)
     y = torch.empty_like(x)
     u = torch.empty((W.shape[0], PC), device=W.device)
     this = lambda: this_launch(W, V_inv, x, cam, buckets, y)

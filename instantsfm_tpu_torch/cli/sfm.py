@@ -3,21 +3,25 @@
 Counterpart of ``instantsfm_tpu/cli/sfm.py``:
 
     python -m instantsfm_tpu_torch.cli.sfm --data_path SCENE [--f32]
-        [--export_txt] [--device cuda|cpu]
+        [--export_txt] [--device cuda|cpu] [--record_recon]
+        [--record_path DIR] [--enable_gui]
 
 SCENE holds ``database.db`` (and optionally ``images/`` for point colors
 and ``depth/``); the model is written to ``SCENE/sparse/0``.  The solve
 runs in float32 on the card, and in float64 on the CPU unless ``--f32``
 (as the JAX package's CLI: float64 only on its CPU backend).
-``--enable_gui`` and ``--record_recon`` raise ``NotImplementedError``
-naming their ROADMAP item.
+``--record_recon`` saves a snapshot after global positioning and after
+each BA round under ``DIR/session_<time>`` (default ``SCENE/record``;
+replay with ``cli.vis``); ``--enable_gui`` serves them live where viser
+is installed and blocks at the end.  Either makes BA run its per-round
+loop, as in JAX.
 
 Started as several processes (``ISFM_COORDINATOR`` /
 ``ISFM_NUM_PROCESSES`` / ``ISFM_PROCESS_ID``, or torchrun; see
 ``parallel/multihost.py``), every process runs the mapper, relative pose
 shares its chunks and the LM solves shard their points over the ranks;
-rank 0 alone writes the model (the JAX CLI writes it from every process,
-and on a shared path those writes race).
+rank 0 alone writes the model and records (the JAX CLI writes it from
+every process, and on a shared path those writes race).
 """
 
 from __future__ import annotations
@@ -44,10 +48,6 @@ def main(argv=None):
                         help="solve in float32 (the default on the card; "
                              "the CPU's default is float64)")
     args = parser.parse_args(argv)
-    if args.enable_gui or args.record_recon:
-        raise NotImplementedError(
-            "--enable_gui / --record_recon: the visualizer (vis/) is not "
-            "ported yet (ROADMAP queue 1, item 9)")
 
     from instantsfm_tpu_torch.config import Config
     from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
@@ -79,16 +79,28 @@ def main(argv=None):
         depths_available = read_depths_into_features(
             path_info.depth_path, cameras, images)
 
+    visualizer = None
+    if (args.enable_gui or args.record_recon) \
+            and multihost.process_index() == 0:
+        from instantsfm_tpu_torch.vis.visualizer import \
+            ReconstructionVisualizer
+        visualizer = ReconstructionVisualizer(
+            serve=args.enable_gui, save_data=args.record_recon,
+            save_dir=args.record_path or path_info.record_path)
+
     t0 = time.time()
     cameras, images, tracks, _ = solve_global_mapper(
         view_graph, cameras, images, Config(feature_name),
-        depths_available=depths_available, dtype=dtype, device=device)
+        depths_available=depths_available, visualizer=visualizer,
+        dtype=dtype, device=device)
     print(f"Reconstruction done in {time.time() - t0:.2f} seconds")
 
     if multihost.process_index() == 0:
         write_reconstruction(path_info.output_path, cameras, images, tracks,
                              path_info.image_path, export_txt=args.export_txt)
         print(f"Reconstruction written to {path_info.output_path}")
+    if visualizer is not None and args.enable_gui:
+        visualizer.block()
     return 0
 
 

@@ -8,12 +8,14 @@ This file imports neither JAX nor the JAX package, so on the card machine
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Without a card each test skips.  K1's tolerance is per camera entry,
-|y - y_plain| <= tol * SUM_{o: cam_o = c} |u_o| (``chip_smoke.k1_check``),
-not per max|y|, because a camera's sum of u cancels: tol 1e-5 in float32
-(the kernel sums tracks by a butterfly and cameras with atomics in an order
-that changes from run to run, the plain version by reshape-sums and
-index_add_: sums of up to 2048 track rows and ~2000 camera rows in other
-orders), 1e-10 in float64.  K2/K3 (float32 only): rel 1e-5 of each
+|y - y_plain| <= tol * SUM_{o: cam_o = c} |W_o| |V_inv_p| SUM_k |W_k|^T
+|x[cam_k]| (``chip_smoke.k1_check``: the camera sum of the absolute chain,
+the standard bound on the rounding of every sum in it), not per max|y|,
+because a camera's sum of u and a track's sum of W^T x cancel: tol 1e-5 in
+float32 (the kernel sums tracks by a butterfly and cameras with atomics in
+an order that changes from run to run, the plain version by reshape-sums
+and index_add_: sums of up to 2048 track rows and thousands of camera rows
+in other orders), 1e-10 in float64.  K2/K3 (float32 only): rel 1e-5 of each
 output's max and 1e-4 of each gradient column's max (sums in other orders,
 FMA contraction)."""
 
@@ -809,3 +811,155 @@ def test_distributed_gs_step_nccl_matches_single_device(nccl_world1,
         _rel_close(getattr(sp, f).grad.cpu(), getattr(pool, f).grad.cpu(),
                    1e-4)
     _rel_close(offset2.grad.cpu(), offset.grad.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_relative_pose_errors_card_matches_cpu():
+    """``eval.align.relative_pose_errors_deg`` on the card against the CPU
+    (float64 on both), 300 images, 50,000 of the 89,700 ordered pairs
+    sampled: the same unregistered penalties, errors within 1e-6 degree."""
+    _need_card()
+    from instantsfm_tpu_torch.eval import align
+
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((300, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = rng.standard_normal((300, 3))
+    q_est = q + 0.02 * rng.standard_normal(q.shape)
+    q_est /= np.linalg.norm(q_est, axis=1, keepdims=True)
+    t_est = t + 0.05 * rng.standard_normal(t.shape)
+    registered = rng.uniform(size=300) > 0.05
+    errs = {dev: align.relative_pose_errors_deg(
+        q_est, t_est, q, t, registered, max_pairs=50_000, device=dev)
+        for dev in ("cpu", "cuda")}
+    assert errs["cuda"].shape == (50_000,)
+    fin = np.isfinite(errs["cpu"])
+    assert np.array_equal(fin, np.isfinite(errs["cuda"])) and not fin.all()
+    np.testing.assert_allclose(errs["cuda"][fin], errs["cpu"][fin], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_chamfer_distance_card_matches_cpu():
+    """The blocked nearest neighbour on the card against the CPU, float32,
+    full-precision products: within 1e-5 relative."""
+    _need_card()
+    from instantsfm_tpu_torch.eval import chamfer
+
+    rng = np.random.default_rng(0)
+    p1 = rng.uniform(-0.5, 0.5, (20_000, 3))
+    p2 = rng.uniform(-0.5, 0.5, (15_000, 3))
+    card = chamfer.chamfer_distance_device(p1, p2, device="cuda")
+    cpu = chamfer.chamfer_distance_device(p1, p2, device="cpu")
+    assert abs(card - cpu) <= 1e-5 * cpu
+    assert abs(card - chamfer.chamfer_distance_kdtree(p1, p2)) <= 1e-3 * cpu
+
+
+def _two_view_pair(config):
+    """Two SIMPLE_RADIAL views of 150 points (20% outliers) with the pair's
+    model set to the ground truth for ``config`` (E's pose, F or the plane
+    z = 6's homography), in the port's types."""
+    from scipy.spatial.transform import Rotation as Rot
+
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.scene import types as st
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2, 2, (150, 3)) + np.array([0, 0, 6.0])
+    R2 = Rot.from_rotvec([0.05, 0.4, 0.02]).as_matrix()
+    t2 = -R2 @ np.array([2.0, 0.2, 0.5])
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    proj = lambda Rm, t: (pts @ Rm.T + t) @ K.T
+    xy1, xy2 = (p[:, :2] / p[:, 2:] for p in (proj(np.eye(3), 0), proj(R2, t2)))
+    xy1 = xy1 + 0.1 * rng.standard_normal(xy1.shape)
+    xy2 = xy2 + 0.1 * rng.standard_normal(xy2.shape)
+    out = rng.choice(150, 30, replace=False)
+    xy2[out] = rng.uniform(0, 640, (30, 2))
+    n = 150
+    cameras = st.Cameras(
+        model_ids=np.array([cm.SIMPLE_RADIAL], np.int32),
+        widths=np.array([640]), heights=np.array([480]),
+        params=cm.pad_params([500.0, 320.0, 240.0, 0.0])[None],
+        has_prior_focal=np.array([True]), has_refined_focal=np.array([False]))
+    images = st.Images(
+        cam_idx=np.zeros(2, np.int32), names=["a", "b"],
+        qvec=np.tile([0., 0, 0, 1], (2, 1)), tvec=np.zeros((2, 3)),
+        registered=np.ones(2, bool), cluster_id=np.full(2, -1, np.int32),
+        kp_xy=np.concatenate([xy1, xy2]),
+        kp_offset=np.array([0, n, 2 * n], np.int64))
+    tx = np.array([[0, -t2[2], t2[1]], [t2[2], 0, -t2[0]],
+                   [-t2[1], t2[0], 0]])
+    Ki = np.linalg.inv(K)
+    vg = st.ViewGraph(
+        pair_i=np.array([0], np.int32), pair_j=np.array([1], np.int32),
+        valid=np.ones(1, bool), config=np.array([config], np.int8),
+        E_mat=np.eye(3)[None].copy(), F_mat=(Ki.T @ tx @ R2 @ Ki)[None],
+        H_mat=(K @ (R2 + np.outer(t2, [0, 0, 1 / 6.0])) @ Ki)[None],
+        qvec=Rot.from_matrix(R2).as_quat()[None],
+        tvec=(t2 / np.linalg.norm(t2))[None],
+        matches=np.stack([np.arange(n), np.arange(n)], 1).astype(np.int32),
+        match_offset=np.array([0, n], np.int64), inlier_mask=np.ones(n, bool))
+    return vg, cameras, images
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [2, 3, 4],
+                         ids=["calibrated", "uncalibrated", "planar"])
+def test_pair_inliers_card_matches_cpu(config):
+    """``pipeline.pair_inliers.image_pair_inliers_count`` on the card
+    against the CPU (float64): the same inlier masks."""
+    _need_card()
+    from instantsfm_tpu_torch.pipeline import pair_inliers
+    from instantsfm_tpu_torch.pipeline.relpose import undistort_images
+
+    opts = dict(max_epipolar_error_E=1.0, max_epipolar_error_F=4.0,
+                max_epipolar_error_H=4.0)
+    masks = {}
+    for dev in ("cpu", "cuda"):
+        vg, cameras, images = _two_view_pair(config)
+        undistort_images(cameras, images, device=dev)
+        pair_inliers.image_pair_inliers_count(vg, cameras, images, opts,
+                                              device=dev)
+        masks[dev] = vg.inlier_mask
+    assert 0 < masks["cpu"].sum() < len(masks["cpu"])
+    np.testing.assert_array_equal(masks["cuda"], masks["cpu"])
+
+
+@pytest.mark.cuda
+def test_fisheye_undistorter_card_matches_cpu(tmp_path):
+    """``undistort_fisheye_images`` on an OPENCV_FISHEYE model, the remap
+    grid on the card against the CPU (float64): grids within 1e-9 px,
+    images within one level, the same ``geo_locs.txt``."""
+    _need_card()
+    from instantsfm_tpu_torch.io import colmap_model as cmio
+    from instantsfm_tpu_torch.io.image import imwrite
+    from instantsfm_tpu_torch.pipeline import fisheye_undistorter as fe
+    from instantsfm_tpu_torch.scene import cameras as cm
+
+    rng = np.random.default_rng(0)
+    W, H = 640, 480
+    params = np.array([300., 300, W / 2, H / 2, 0.05, -0.01, 0.001, 0.0])
+    cmio.write_model(
+        [cmio.ModelCamera(1, cm.OPENCV_FISHEYE, W, H, params)],
+        [cmio.ModelImage(i + 1, np.array([1., 0, 0, 0]),
+                         rng.standard_normal(3), 1, f"{i}.png",
+                         np.zeros((0, 2)), np.zeros(0, np.int64))
+         for i in range(2)], [], str(tmp_path / "sparse"))
+    (tmp_path / "images").mkdir()
+    for i in range(2):
+        imwrite(str(tmp_path / "images" / f"{i}.png"),
+                rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    grids = [fe.remap_grid(cm.OPENCV_FISHEYE, cm.pad_params(params), W, H,
+                           device=dev) for dev in ("cpu", "cuda")]
+    np.testing.assert_allclose(grids[1], grids[0], rtol=0, atol=1e-9)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = fe.undistort_fisheye_images(
+            str(tmp_path / "sparse"), str(tmp_path / "images"),
+            str(tmp_path / dev / "undist"), log=lambda *a: None, device=dev)
+    assert sorted(outs["cuda"]) == sorted(outs["cpu"]) == [1, 2]
+    for i in (1, 2):
+        diff = np.abs(outs["cuda"][i].astype(int) - outs["cpu"][i].astype(int))
+        assert diff.max() <= 1
+    assert (tmp_path / "cuda" / "geo_locs.txt").read_bytes() == \
+        (tmp_path / "cpu" / "geo_locs.txt").read_bytes()

@@ -170,11 +170,12 @@ def test_entry_points_refuse_unported_options(runs):
                                                cfg.L1_SOLVER_OPTIONS),
                 lambda: tgp.global_positioning(cams, imgs, runs["port"][2],
                                                cfg.GLOBAL_POSITIONER_OPTIONS),
-                lambda: cli.main(["--data_path", str(runs["root"])])):
+                lambda: cli.main(["--data_path", str(runs["root"])]),
+                # the recorder's options are taken and reach the device check
+                lambda: cli.main(["--data_path", str(runs["root"]),
+                                  "--enable_gui", "--record_recon"])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["--data_path", str(runs["root"]), "--enable_gui"])
 
 
 def test_k1_counts_only_card_launches(runs):
