@@ -27,8 +27,9 @@ Phases (any failure exits non-zero):
   5. SfM path: a seeded COLMAP database at the ETH3D-indoor scale (200
      images on a ring, 20k points, each image matched with the next 12,
      0.4 px noise, 8% outlier matches) goes through
-     ``read_colmap_database -> pipeline.mapper.solve_global_mapper``
-     (float32) ``-> write_reconstruction`` and the model is read back; it
+     ``bench_e2e_torch.run_pipeline`` (``read_colmap_database ->
+     pipeline.mapper.solve_global_mapper`` (float32) ``->
+     write_reconstruction``) and the model is read back; it
      must register every image within 1 degree and 1% of the extent of the
      ground truth, and K1 must have run in global positioning and in bundle
      adjustment and match its plain version on the first input each stage
@@ -45,15 +46,15 @@ Phases (any failure exits non-zero):
   7. the mapper at scale (``SCALE`` line): ``bench_e2e.py``'s config 4, a
      ring of 2,000 SIMPLE_RADIAL images, 300k points, each image matched
      with the next 10, at most 2,000 matches a pair (setup timed apart),
-     through the mapper (float32) and ``write_reconstruction``, scored by
+     through ``bench_e2e_torch.run_pipeline``, scored by
      the port's ``eval`` (``align`` and ``benchmark.evaluate_scene``):
      2,000/2,000 registered, mean rotation error <= 0.5 degree, max <= 1,
      ATE max < 1% of the extent; K1 must launch in GP (shared camera table,
      PC = 3) and in BA (PC = 8, C = 2,000: the global-atomic branch) and
      match its plain version on the first input each gave it; errors after
-     rotation averaging, GP and each BA round, stage seconds, LM
-     iterations, K1 launches by stage and branch, AUCs, peak device and
-     host memory;
+     rotation averaging, GP and each BA round, stage seconds, rotation
+     averaging's host reads (``ra_syncs``), LM and PCG iterations, K1
+     launches by stage and branch, AUCs, peak device and host memory;
   8. pixels to poses: ``tests/test_pixels_e2e.py``'s scene (four textured
      planes) rendered by the port's rasterizer in 16 views at 480x360 and
      written as PNG, then ``cli.feat`` (SIFT and matching on the card) and
@@ -129,7 +130,18 @@ Phases (any failure exits non-zero):
      matches but for ``DIST_MATCH_SHARE`` of them, the model must register
      as many views as phase 8's and meet its bars, and K1 must launch on
      both ranks;
-  15. prints the kernels line, the card line and, last, the ok line.
+  15. the measuring entry points (``BENCH`` line): ``bench_torch`` at the
+     ETH3D-indoor BA shape, ``bench_gs_torch`` at 100k gaussians, the BA,
+     GP (2,000-image shape) and 3DGS trace tools with a few steps,
+     ``probe_accuracy_torch`` and ``bench_relpose_torch`` on a 200-image
+     ring and ``bench_lightglue_torch``, each through its own functions;
+     each must print its metric and launch the kernels of its path
+     (``bench_e2e_torch`` is phases 5 and 7);
+  16. an installed, read-only copy of the package (``INSTALLED`` line):
+     imported by a fresh process from a temporary directory, it must build
+     K1 into the user cache and launch it once, held here against K1's
+     plain version;
+  17. prints the kernels line, the card line and, last, the ok line.
 """
 
 from __future__ import annotations
@@ -140,7 +152,6 @@ import dataclasses
 import json
 import math
 import os
-import resource
 import shutil
 import subprocess
 import sys
@@ -166,23 +177,24 @@ from instantsfm_tpu_torch.gs import splats as gs_splats
 from instantsfm_tpu_torch.gs import strategy as gs_strategy
 from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
 from instantsfm_tpu_torch.io import colmap_model as cmio
-from instantsfm_tpu_torch.io.colmap_db import (ColmapDatabase,
-                                               read_colmap_database)
+from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
 from instantsfm_tpu_torch.io.image import imwrite
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.parallel import multihost, sharded
 from instantsfm_tpu_torch.pipeline import ba, preprocess, relpose, vgc
 from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
-from instantsfm_tpu_torch.pipeline.writer import write_reconstruction
 from instantsfm_tpu_torch.scene import cameras as cm
-from instantsfm_tpu_torch.scene.types import (CONFIG_CALIBRATED, Cameras,
-                                              Images, Tracks)
+from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
 from instantsfm_tpu_torch.solve import block_lm, robust
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import bucketize, bucketize_problem
 from instantsfm_tpu_torch.solve.problems import make_ba_problem, make_gp_problem
 from instantsfm_tpu_torch.utils import build, debug
+from instantsfm_tpu_torch.utils.bench import card_line
 from instantsfm_tpu_torch.utils.device import full_f32
+
+from bench_e2e_torch import (RING_CAMERA, ring_image_name, ring_rotation,
+                             run_pipeline, write_ring_db)
 
 OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
@@ -201,12 +213,6 @@ GS_STEPS, GS_RESET_EVERY = 40, 25
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
 
 
 def time_ms(fn, reps, flush=None, queued=True):
@@ -831,15 +837,6 @@ def k23_parity(device):
 
 # ------------------------------------------------------------ BA path
 
-def ring_rotation(center):
-    """World->camera rotation of a camera at ``center`` looking at the
-    origin (rows x, y, z)."""
-    z = -center / np.linalg.norm(center)
-    x = np.cross([0, 0, 1.0], z)
-    x /= np.linalg.norm(x)
-    return np.stack([x, np.cross(z, x), z], 0)
-
-
 def make_scene(num_cams=200, num_pts=50_000, obs_per_pt=8, seed=SEED):
     """Seeded synthetic scene at the ETH3D-indoor shape (as bench.py's
     make_ba): cameras on a ring looking at the origin, SIMPLE_RADIAL,
@@ -1067,102 +1064,6 @@ def run_gp_step(device, gt):
 # ------------------------------------------------------------ SfM path
 
 SFM_CAMS, SFM_POINTS, SFM_WINDOW = 200, 20_000, 12   # bench_e2e.py:26-28
-RING_CAMERA = (cm.SIMPLE_RADIAL, 640, 480, (520.0, 320.0, 240.0, 0.01))
-
-
-def ring_image_name(i):
-    return f"img{i:04d}.jpg"
-
-
-def write_ring_db(dbpath, num_cams=SFM_CAMS, num_pts=SFM_POINTS,
-                  window=SFM_WINDOW, seed=SEED, match_noise=0.4,
-                  outlier_frac=0.08, vis_angle=0.9, scene_scale=1.0,
-                  max_matches_per_pair=0):
-    """A seeded COLMAP database at the ETH3D-indoor scale (the scene of
-    ``bench_e2e.py::build_scene_db``, in numpy, with its draws in its
-    order, so a seed writes that function's database): ``num_cams``
-    SIMPLE_RADIAL cameras (f 520, k1 0.01, 640x480) on a ring of radius
-    8 * ``scene_scale`` looking at a cube of ``num_pts`` points within
-    +-3 * ``scene_scale``, each camera seeing the points within
-    ``vis_angle`` radians of its own bearing; keypoints are the projections
-    plus ``match_noise`` px of noise; each camera is matched with the next
-    ``window`` on the ring (pairs with < 30 shared points are skipped), at
-    most ``max_matches_per_pair`` of a pair's shared points drawn when
-    nonzero, with ``outlier_frac`` of every pair's matches redirected to
-    random keypoints, all pairs CALIBRATED.  Returns the ground truth
-    (world->cam xyzw qvec, tvec, centers) and the pair and match counts."""
-    rng = np.random.default_rng(seed)
-    model_id, width, height, (f_px, cx, cy, k1_) = RING_CAMERA
-    angles = np.linspace(0, 2 * np.pi, num_cams, endpoint=False)
-    radius = 8.0 * scene_scale
-    centers = np.stack([radius * np.cos(angles), radius * np.sin(angles),
-                        1.0 + 0.3 * rng.standard_normal(num_cams)], -1)
-    points = rng.uniform(-3.0 * scene_scale, 3.0 * scene_scale, (num_pts, 3))
-    pt_angle = np.arctan2(points[:, 1], points[:, 0])
-    Rs = np.stack([ring_rotation(c) for c in centers])
-    qvec = lie.matrix_to_quat(torch.as_tensor(Rs)).numpy()
-    tvec = -np.einsum("cij,cj->ci", Rs, centers)
-
-    kp, idx_of = [], []
-    for i in range(num_cams):
-        # the points near the camera's bearing by a cheap wrapped angle
-        # (within 1e-15 rad of the exact test's), then the exact tests on
-        # those alone: the same points at a fraction of the cost
-        near = np.abs((pt_angle - angles[i] + np.pi) % (2 * np.pi) - np.pi)
-        cand = np.nonzero(near < vis_angle + 1e-9)[0]
-        xyz = points[cand] @ Rs[i].T + tvec[i]
-        uv = xyz[:, :2] / (xyz[:, 2:3] + 1e-12)
-        xy = uv * (1.0 + k1_ * np.sum(uv * uv, 1, keepdims=True)) * f_px \
-            + np.array([cx, cy])
-        dang = np.abs(np.angle(np.exp(1j * (pt_angle[cand] - angles[i]))))
-        vis = ((xyz[:, 2] > 0.5) & (dang < vis_angle)
-               & (xy[:, 0] > 0) & (xy[:, 0] < width)
-               & (xy[:, 1] > 0) & (xy[:, 1] < height))
-        idx = cand[vis]
-        xy = xy[vis]
-        kp.append(xy + match_noise * rng.standard_normal((len(idx), 2)))
-        idx_of.append(idx.astype(np.int32))
-
-    n_pairs = n_matches = 0
-    with ColmapDatabase.connect(dbpath) as db:
-        db.create_tables()
-        cam_id = db.add_camera(model_id, width, height,
-                               [f_px, cx, cy, k1_], prior_focal=True)
-        img_ids = [db.add_image(ring_image_name(i), cam_id)
-                   for i in range(num_cams)]
-        for i in range(num_cams):
-            db.add_keypoints(img_ids[i], kp[i])
-        map_i = np.full(num_pts, -1, np.int32)   # point -> feature in image i
-        for i in range(num_cams):
-            map_i[:] = -1
-            map_i[idx_of[i]] = np.arange(len(idx_of[i]), dtype=np.int32)
-            for dj in range(1, window + 1):
-                j = (i + dj) % num_cams
-                fi_of_j = map_i[idx_of[j]]
-                both = fi_of_j >= 0
-                if int(both.sum()) < 30:
-                    continue
-                fi = fi_of_j[both]
-                fj = np.nonzero(both)[0].astype(np.int32)
-                if max_matches_per_pair and len(fi) > max_matches_per_pair:
-                    keep = rng.choice(len(fi), max_matches_per_pair,
-                                      replace=False)
-                    fi, fj = fi[keep], fj[keep]
-                # every ring edge once, lower image id first
-                a, b = (j, i) if j < i else (i, j)
-                m = np.stack([fj, fi] if j < i else [fi, fj], 1)
-                n_out = int(outlier_frac * len(m))
-                if n_out:
-                    sel = rng.choice(len(m), n_out, replace=False)
-                    m[sel, 1] = rng.integers(0, len(kp[b]), n_out)
-                db.add_matches(img_ids[a], img_ids[b], m)
-                db.add_two_view_geometry(img_ids[a], img_ids[b], m,
-                                         config=CONFIG_CALIBRATED)
-                n_pairs += 1
-                n_matches += len(m)
-        db.set_feature_name("colmap")
-    return dict(q=qvec, t=tvec, centers=centers), n_pairs, n_matches
-
 
 def sfm_errors(images, gt):
     """Rotation errors (degrees, after removing the global rotation gauge)
@@ -1260,13 +1161,14 @@ def k1_sfm_check(stage, args, device):
 
 def run_sfm(device, root, profile=False):
     """The global SfM mapper at the ETH3D-indoor scale through the port's
-    entry points: a COLMAP database is written in ``root``, read back,
-    solved by ``solve_global_mapper`` in float32 on the card and written as
-    a sparse model, which is read back and held against the ground truth.
-    The first K1 input with x != 0 of global positioning and of bundle
-    adjustment is kept and K1 is held against its plain version on it.
-    ``profile`` also runs the relative-pose stage once more under
-    torch.profiler.  Returns (SFM record, ground truth, database path)."""
+    entry points: a COLMAP database is written in ``root``, and
+    ``bench_e2e_torch.run_pipeline`` reads it back, solves it with
+    ``solve_global_mapper`` in float32 on the card and writes the sparse
+    model, which is read back and held against the ground truth.  The first
+    K1 input with x != 0 of global positioning and of bundle adjustment is
+    kept and K1 is held against its plain version on it.  ``profile`` also
+    runs the relative-pose stage once more under torch.profiler.  Returns
+    (SFM record, ground truth, database path)."""
     dbpath = os.path.join(root, "database.db")
     t0 = time.perf_counter()
     gt, n_pairs, n_matches = write_ring_db(dbpath)
@@ -1292,30 +1194,13 @@ def run_sfm(device, root, profile=False):
                 a.clone() if torch.is_tensor(a) else a for a in args)
         return launch(*args)
 
-    debug.drain_stats()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    out = os.path.join(root, "sparse")
     block_lm.schur_wchain = keep_first_input
-    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
     try:
-        t_start = time.perf_counter()
-        view_graph, cameras, images, feature_name = read_colmap_database(
-            dbpath)
-        db_read_s = time.perf_counter() - t_start
-        cameras, images, tracks, timings = solve_global_mapper(
-            view_graph, cameras, images, Config(feature_name),
-            dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
-            device=device)
-        t0 = time.perf_counter()
-        out = os.path.join(root, "sparse")
-        write_reconstruction(out, cameras, images, tracks)
-        write_s = time.perf_counter() - t0
-        total_s = time.perf_counter() - t_start
+        pipe, _, images, _ = run_pipeline(dbpath, out, device,
+                                          stage_hook=hook)
     finally:
         block_lm.schur_wchain = launch
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = k1.schur_wchain.launches
-    stats = debug.drain_stats()
     t0 = time.perf_counter()
     cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(out, "0"))
     read_model_s = time.perf_counter() - t0
@@ -1330,35 +1215,20 @@ def run_sfm(device, root, profile=False):
               for stage, args in k1_inputs_at.items()}
     del k1_inputs_at
     rot, ate = sfm_errors(images, gt)
-    gp_launches = launches_at.get("global_positioning", 0)
-    ba_launches = launches_at.get("bundle_adjustment", gp_launches) - gp_launches
-    ra_syncs = stats.get("ra_syncs", [])
     rec = dict(
-        images=SFM_CAMS, points=SFM_POINTS, pairs=n_pairs, matches=n_matches,
-        db_read_s=db_read_s, stage_s=timings, write_s=write_s,
-        total_s=total_s, build_db_s=build_db_s, read_model_s=read_model_s,
-        peak_device_gb=peak_gb,
-        registered=int(images.registered.sum()),
-        tracks=int(tracks.num_tracks),
-        observations=int(tracks.num_observations),
+        pipe, points=SFM_POINTS, pairs=n_pairs, matches=n_matches,
+        build_db_s=build_db_s, read_model_s=read_model_s,
         model_images=len(imgs_m), model_points=len(pts_m),
-        gp_lm_iters=stats.get("gp_lm_iters"),
-        ba_lm_iters=stats.get("ba_lm_iters"),
-        k1_launches_gp=gp_launches, k1_launches_ba=ba_launches,
-        k1_launches_total=launches,
-        k1_plain_calls=k1.schur_wchain.plain_calls,
         k1_max_abs_err_gp=k1_sfm.get("global_positioning", {}).get(
             "max_abs_err"),
         k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
             "max_abs_err"),
-        k1_on_mapper_inputs=k1_sfm,
-        ra_syncs=ra_syncs,
-        ra_syncs_total=sum(sum(d.values()) for d in ra_syncs),
-        vgc_syncs=stats.get("vgc_syncs"), relpose_profile=relpose_prof,
+        k1_on_mapper_inputs=k1_sfm, relpose_profile=relpose_prof,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
         card=card_line())
     log("SFM " + json.dumps(rec))
+    gp_launches, ba_launches = rec["k1_launches_gp"], rec["k1_launches_ba"]
     checks = {
         f"{SFM_CAMS}/{SFM_CAMS} images registered":
             rec["registered"] == SFM_CAMS,
@@ -1368,7 +1238,8 @@ def run_sfm(device, root, profile=False):
         "max ATE < 1% of the extent": rec["ate_rel_max"] < 0.01,
         "K1 launched in global positioning": gp_launches > 0,
         "K1 launched in bundle adjustment": ba_launches > 0,
-        "K1 launched only in those stages": launches == gp_launches + ba_launches,
+        "K1 launched only in those stages":
+            rec["k1_launches_total"] == gp_launches + ba_launches,
         "K1 held against its plain version on a GP and a BA input":
             set(k1_sfm) == {"global_positioning", "bundle_adjustment"},
     }
@@ -1581,31 +1452,13 @@ def run_scale(device, root, scene=SCALE_2K):
                        cam["t"].detach().double().cpu().numpy()))
         return state, history
 
-    debug.drain_stats()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    sparse = os.path.join(root, "sparse")
     block_lm.schur_wchain, ba.optimize = k1_spy, ba_round
-    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
     try:
-        t_start = time.perf_counter()
-        view_graph, cameras, images, feature_name = read_colmap_database(
-            dbpath)
-        db_read_s = time.perf_counter() - t_start
-        cameras, images, tracks, timings = solve_global_mapper(
-            view_graph, cameras, images, Config(feature_name),
-            dtype=torch.float32, log=lambda *a: None, stage_hook=hook,
-            device=device)
-        t0 = time.perf_counter()
-        sparse = os.path.join(root, "sparse")
-        write_reconstruction(sparse, cameras, images, tracks)
-        write_s = time.perf_counter() - t0
-        total_s = time.perf_counter() - t_start
+        pipe, _, images, tracks = run_pipeline(dbpath, sparse, device,
+                                               stage_hook=hook)
     finally:
         block_lm.schur_wchain, ba.optimize = launch, ba_optimize
-    k1_launches = k1.schur_wchain.launches
-    k1_plain_calls = k1.schur_wchain.plain_calls
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    stats = debug.drain_stats()
     t0 = time.perf_counter()
     cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(sparse, "0"))
     read_model_s = time.perf_counter() - t0
@@ -1628,24 +1481,13 @@ def run_scale(device, root, scene=SCALE_2K):
               for stage, args in first_input.items()}
     first_input.clear()
     rec = dict(
-        scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
-        db_read_s=db_read_s, stage_s=timings, write_s=write_s,
-        total_s=total_s, read_model_s=read_model_s, eval_s=eval_s,
-        registered=int(len(reg)), tracks=int(tracks.num_tracks),
-        observations=int(tracks.num_observations),
+        pipe, scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
+        read_model_s=read_model_s, eval_s=eval_s,
         model_images=len(imgs_m), model_points=len(pts_m),
-        gp_lm_iters=stats.get("gp_lm_iters"),
-        ba_lm_iters=stats.get("ba_lm_iters"),
-        pcg_iters_total=sum(stats.get("pcg_iters", [])),
-        k1_launches=launches, k1_launches_total=k1_launches,
-        k1_plain_calls=k1_plain_calls, k1=k1_rec,
+        k1_launches=launches, k1=k1_rec,
         rot_err_deg_mean=float(rot.mean()), rot_err_deg_max=float(rot.max()),
         ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()),
-        errors_by_stage=errors_at, eval=scores,
-        peak_device_gb=peak_gb,
-        peak_host_rss_gb=resource.getrusage(
-            resource.RUSAGE_SELF).ru_maxrss / 1e6,
-        card=card_line())
+        errors_by_stage=errors_at, eval=scores, card=card_line())
     log("SCALE " + json.dumps(rec))
     ba_first = k1_rec.get("bundle_adjustment", {})
     checks = {
@@ -1665,7 +1507,7 @@ def run_scale(device, root, scene=SCALE_2K):
             k.startswith("bundle_adjustment/") and v > 0
             for k, v in launches.items()),
         "K1 launched only in those stages":
-            k1_launches == sum(launches.values()),
+            rec["k1_launches_total"] == sum(launches.values()),
         "K1 held against its plain version on a GP and a BA input":
             set(k1_rec) == {"global_positioning", "bundle_adjustment"},
     }
@@ -3507,6 +3349,200 @@ def run_dist(device, gs_root, pix_work, pix_gt, pix_rec, gt, gp_rec):
     return rec
 
 
+# ------------------------------------------------------ measuring entry points
+
+BENCH_TRACE_STEPS = 3
+
+
+def launched(fn):
+    """(fn(), the K1, K2 and K3 launches and K1's plain-version calls it
+    made): every count is set to 0 just before ``fn`` and read just after."""
+    k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
+    k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+    out = fn()
+    return out, dict(k1=k1.schur_wchain.launches,
+                     k1_plain=k1.schur_wchain.plain_calls,
+                     k2=k23.composite_fwd.launches,
+                     k3=k23.composite_bwd.launches)
+
+
+def top_kernels(rec, n=8):
+    """A trace record with only its ``n`` largest kernels."""
+    return dict(rec, kernels=[dict(k, name=k["name"][:60])
+                              for k in rec["kernels"][:n]])
+
+
+def run_bench(device):
+    """Each measuring entry point's main path once, at its real size:
+    ``bench_torch`` (the ETH3D-indoor BA step), ``bench_gs_torch`` (100k
+    gaussians), the trace tools with ``BENCH_TRACE_STEPS`` steps (the GP
+    step at the 2,000-image shape), ``probe_accuracy_torch`` and
+    ``bench_relpose_torch`` on the SfM phase's 200-image scene and
+    ``bench_lightglue_torch`` at its defaults.  (``bench_e2e_torch`` runs
+    in the SFM and SCALE phases.)  Every record must carry its metric, the
+    card, and launches of the kernels its path runs; no K1 call may take the
+    plain version.  Returns the BENCH record."""
+    import bench_gs_torch
+    import bench_torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import bench_lightglue_torch
+    import bench_relpose_torch
+    import probe_accuracy_torch
+    import trace_ba_step_torch
+    import trace_gp_step_torch
+    import trace_gs_step_torch
+
+    rec, launches = {}, {}
+    t0 = time.perf_counter()
+    rec["bench_torch"], launches["bench_torch"] = launched(
+        lambda: bench_torch.measure(200, 50_000, 8, 5, device))
+    rec["bench_gs_torch"], launches["bench_gs_torch"] = launched(
+        lambda: bench_gs_torch.measure(device))
+    for name, tool in (("trace_ba_step_torch", trace_ba_step_torch),
+                       ("trace_gp_step_torch", trace_gp_step_torch),
+                       ("trace_gs_step_torch", trace_gs_step_torch)):
+        out, launches[name] = launched(
+            lambda: tool.trace(BENCH_TRACE_STEPS, device))
+        rec[name] = top_kernels(out)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as root:
+        scene = dict(num_cams=SFM_CAMS, num_pts=SFM_POINTS, window=SFM_WINDOW)
+        (probe, _), launches["probe_accuracy_torch"] = launched(
+            lambda: probe_accuracy_torch.probe(scene, device, root))
+        rec["probe_accuracy_torch"] = probe
+        dbpath = os.path.join(root, "database.db")
+        relpose_s = [bench_relpose_torch.timed_pass(dbpath, device)[0]
+                     for _ in range(2)]
+        rec["bench_relpose_torch"] = dict(
+            metric="relpose_pairs_per_sec", cold_s=relpose_s[0],
+            warm_s=relpose_s[1], pairs=probe["pairs"],
+            value=probe["pairs"] / relpose_s[1])
+    rec["bench_lightglue_torch"] = bench_lightglue_torch.measure(32, 1024, 8,
+                                                                 device)
+    rec.update(seconds=time.perf_counter() - t0, launches=launches,
+               card=card_line())
+    log("BENCH " + json.dumps(rec))
+    metrics = {"bench_torch": "ba_iters_per_sec",
+               "bench_gs_torch": "gs_train_iters_per_sec",
+               "bench_relpose_torch": "relpose_pairs_per_sec",
+               "bench_lightglue_torch": "lightglue_pairs_per_sec"}
+    bt = rec["bench_torch"]
+    checks = {
+        **{f"{k} prints {m}": rec[k]["metric"] == m
+           and math.isfinite(rec[k]["value"]) and rec[k]["value"] > 0
+           for k, m in metrics.items()},
+        "bench_torch's roofline share in (0, 1]":
+            0 < bt["roofline_frac"] <= 1,
+        "bench_torch names the card": bt["device"]["kind"]
+            == torch.cuda.get_device_name(0),
+        "K1 launched under bench_torch, the BA and GP traces and the probe":
+            all(launches[k]["k1"] > 0 for k in (
+                "bench_torch", "trace_ba_step_torch", "trace_gp_step_torch",
+                "probe_accuracy_torch")),
+        "K2 and K3 launched once a step under bench_gs_torch and the trace":
+            rec["bench_gs_torch"]["k2_launches_per_step"] == 1
+            and rec["bench_gs_torch"]["k3_launches_per_step"] == 1
+            and rec["trace_gs_step_torch"]["k2_launches_per_step"] == 1
+            and rec["trace_gs_step_torch"]["k3_launches_per_step"] == 1,
+        "no K1 call took the plain version": not any(
+            v["k1_plain"] for v in launches.values()),
+        "every trace saw device time": all(
+            rec[k]["device_busy_ms_per_step"] for k in (
+                "trace_ba_step_torch", "trace_gp_step_torch",
+                "trace_gs_step_torch")),
+        "the probe scored all four stages": [
+            r["stage"] for r in probe["stage_accuracy"]] == [
+            "relpose", "rotation_averaging", "global_positioning",
+            "bundle_adjustment"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"BENCH failed: {failed}")
+    return rec
+
+
+INSTALLED_SCRIPT = """
+import json, os, sys
+import numpy as np, torch
+import instantsfm_tpu_torch
+from instantsfm_tpu_torch.solve import schur_wchain as k1
+from instantsfm_tpu_torch.utils import build
+work = sys.argv[1]
+z = np.load(os.path.join(work, "k1_in.npz"))
+t = lambda k: torch.as_tensor(z[k], device="cuda")
+buckets = tuple(tuple(int(v) for v in b) for b in z["buckets"])
+y = k1.schur_wchain(t("W"), t("V_inv"), t("x"), t("cam"), t("pt"), buckets)
+torch.cuda.synchronize()
+np.save(os.path.join(work, "k1_out.npy"), y.cpu().numpy())
+print(json.dumps(dict(package=instantsfm_tpu_torch.__file__,
+                      build_dir=str(build.build_dir()),
+                      libraries=sorted(os.listdir(build.build_dir())),
+                      launches=k1.schur_wchain.launches)))
+"""
+
+
+def run_installed(device):
+    """The port as a read-only installed package: ``instantsfm_tpu_torch``
+    copied (sources and ``csrc/``, no ``build/``) into a temporary
+    directory made read-only, imported from there by a fresh process whose
+    user cache is another empty temporary directory.  It must build K1 into
+    that cache and launch it once; its output is held against K1's plain
+    version here.  Returns the INSTALLED record."""
+    src = os.path.dirname(os.path.abspath(build.__file__))
+    pkg = os.path.dirname(src)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_installed_") as tmp:
+        site, cache = os.path.join(tmp, "site"), os.path.join(tmp, "cache")
+        copy_dir = os.path.join(site, "instantsfm_tpu_torch")
+        shutil.copytree(pkg, copy_dir, ignore=shutil.ignore_patterns(
+            "build", "__pycache__"))
+        bp = k1_layout([8] * 20_000, 200, SEED)
+        W, V_inv, x, cam, pt, buckets = k1_inputs(bp, 200, 8, torch.float32,
+                                                  device, SEED)
+        np.savez(os.path.join(tmp, "k1_in.npz"), W=W.cpu().numpy(),
+                 V_inv=V_inv.cpu().numpy(), x=x.cpu().numpy(),
+                 cam=cam.cpu().numpy(), pt=pt.cpu().numpy(),
+                 buckets=np.asarray(buckets, np.int64))
+        for d, _, files in os.walk(site):
+            for f in files:
+                os.chmod(os.path.join(d, f), 0o444)
+            os.chmod(d, 0o555)
+        env = dict(os.environ, PYTHONPATH=site, XDG_CACHE_HOME=cache,
+                   PYTHONDONTWRITEBYTECODE="1")
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", INSTALLED_SCRIPT, tmp], cwd=tmp,
+                env=env, capture_output=True, text=True, timeout=600)
+        finally:
+            for d, _, _ in os.walk(site):
+                os.chmod(d, 0o755)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"INSTALLED: the installed copy failed:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.as_tensor(np.load(os.path.join(tmp, "k1_out.npy")),
+                              device=device)
+    want = k1.schur_wchain_reference(W, V_inv, x, cam, pt, buckets)
+    err, rel_chain, _, _ = k1_check(
+        "K1 from the installed copy", got, want,
+        k1_abs_sums(W, V_inv, x, cam, pt, buckets))
+    rec = dict(out, seconds=seconds, max_abs_err=err,
+               max_err_over_abs_chain=rel_chain)
+    log("INSTALLED " + json.dumps(rec))
+    checks = {
+        "imported the copy": rec["package"].startswith(copy_dir),
+        "built into the user cache": rec["build_dir"].startswith(cache),
+        "K1 built there": any(f.startswith("libschur_wchain-")
+                              for f in rec["libraries"]),
+        "K1 launched once": rec["launches"] == 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"INSTALLED failed: {failed}")
+    return rec
+
+
 def profile_ba_step(device):
     """Device time by kernel over one BA LM step at the main-path shape."""
     from torch.autograd import DeviceType
@@ -3571,7 +3607,7 @@ def kernel_entry(name, source, replaces, launches, case, **extra):
 
 
 def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec,
-             scale_rec):
+             scale_rec, bench_rec):
     main_case = next(c for c in cases if c["case"] == "eth3d_indoor_ba"
                      and c["dtype"] == "float32")
     f32_cases = [c for c in cases if c["dtype"] == "float32"]
@@ -3596,6 +3632,13 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec,
         retri_pc2_input={k: retri_rec["k1_on_retri_pc2_input"][k] for k in (
             "PC", "rows", "points", "cams", "L", "ms", "plain_ms", "bound_ms")},
         launches_scale=scale_rec["k1_launches"],
+        launches_by_entry_point={
+            "bench_e2e_torch.py (SFM, 200 images)":
+                sfm_rec["k1_launches_total"],
+            "bench_e2e_torch.py (SCALE, 2,000 images)":
+                scale_rec["k1_launches_total"],
+            **{k: v["k1"] for k, v in bench_rec["launches"].items()
+               if v["k1"]}},
         scale_inputs={stage: {k: c[k] for k in (
             "PC", "rows", "cams", "branch", "ms", "plain_ms", "bound_ms",
             "max_abs_err", "max_err_over_abs_chain", "max_err_over_abs_sum",
@@ -3615,7 +3658,7 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec,
 
 
 def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
-              dist_rec):
+              dist_rec, bench_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
     extra = {} if which == 0 else dict(
         max_rel_err_depth_loss=opts_rec["run_a"]["k3_depth_loss_max_rel_err"],
@@ -3642,6 +3685,9 @@ def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
                                             "k3_launches")[which]],
         launches_dist=dist_rec["gs"][("k2_launches", "k3_launches")[which]],
         max_rel_err_dist=dist_rec["gs"][("k2", "k3")[which]]["max_rel_err"],
+        launches_by_entry_point={
+            k: v[("k2", "k3")[which]] for k, v in bench_rec["launches"].items()
+            if v[("k2", "k3")[which]]},
         **extra)
 
 
@@ -3716,11 +3762,13 @@ def main(argv=None):
             dist_rec = run_dist(device, gs_root, pix_work, pix_gt, pix_rec,
                                 gt, gp_rec)
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
+    bench_rec = run_bench(device)
+    run_installed(device)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec,
-                        dist_rec, scale_rec)] + [
+                        dist_rec, scale_rec, bench_rec)] + [
         k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec,
-                  dist_rec)
+                  dist_rec, bench_rec)
         for which in (0, 1)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``instantsfm_tpu_torch/build/`` (listed in .gitignore) as
 ``lib<name>-<hash of the source>.so``, so an edited source is never served
-from a stale library.  Target: Hopper, ``sm_90a``.
+from a stale library.  Where that directory cannot be written (an installed
+package in a read-only site-packages), the libraries go to the user's cache,
+``$XDG_CACHE_HOME`` or ``~/.cache``, under ``instantsfm_tpu_torch/build``.
+Target: Hopper, ``sm_90a``.
 """
 
 from __future__ import annotations
@@ -12,13 +15,13 @@ import ctypes
 import hashlib
 import os
 import shutil
+import stat
 import subprocess
 import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,16 +42,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _writable(path: Path) -> bool:
+    """Whether files can be made in the directory ``path``.  A directory
+    without its owner's write bit counts as read-only even for root, whom
+    ``os.access`` lets write anywhere."""
+    return (os.access(path, os.W_OK | os.X_OK)
+            and bool(path.stat().st_mode & stat.S_IWUSR))
+
+
+def build_dir() -> Path:
+    """``<package>/build`` where it (or, before it exists, the package
+    directory) is writable; else the user's cache directory."""
+    local = PKG_DIR / "build"
+    if _writable(local if local.is_dir() else PKG_DIR):
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "instantsfm_tpu_torch" / "build"
+
+
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build_all(names) -> None:
     """Compile every named source that is not built yet, one ``nvcc``
     process per source, all started together."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
         out = _target(name)

@@ -1,0 +1,101 @@
+"""Packaging of the port's CUDA sources, on the CPU.
+
+A wheel built offline from the project's metadata carries both
+``instantsfm_tpu_torch/csrc/*.cu`` and the port's console scripts, and
+``utils/build.py`` builds into ``<package>/build`` where it can write there
+and into the user cache directory where it cannot (a read-only installed
+package).  ``nvcc`` is replaced by a stub that writes its output file: no
+compile."""
+
+import importlib.util
+import shutil
+import subprocess
+import sys
+import zipfile
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "instantsfm_tpu_torch"
+
+
+def test_wheel_carries_the_cuda_sources(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    for f in ("pyproject.toml", "README.md"):
+        shutil.copy(REPO / f, src / f)
+    shutil.copytree(PKG, src / PKG.name,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    subprocess.run([sys.executable, "-m", "pip", "wheel", "--no-deps",
+                    "--no-build-isolation", "--no-index", "-q", "-w",
+                    str(tmp_path / "dist"), str(src)], check=True,
+                   capture_output=True)
+    wheel, = (tmp_path / "dist").glob("*.whl")
+    with zipfile.ZipFile(wheel) as z:
+        names = z.namelist()
+        entry = z.read(next(n for n in names
+                            if n.endswith("entry_points.txt"))).decode()
+    cu = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert cu == ["composite_tiles.cu", "schur_wchain.cu"]
+    assert all(f"instantsfm_tpu_torch/csrc/{f}" in names for f in cu)
+    for name, target in (("ins-torch-sfm", "instantsfm_tpu_torch.cli.sfm"),
+                         ("ins-torch-feat", "instantsfm_tpu_torch.cli.feat"),
+                         ("ins-torch-gs", "instantsfm_tpu_torch.cli.gs"),
+                         ("ins-sfm", "instantsfm_tpu.cli.sfm")):
+        assert f"{name} = {target}:main" in entry
+
+
+def _copied_build_module(root: Path):
+    """``utils/build.py`` of a copy of the package under ``root``, loaded
+    from there (its package directory is the copy)."""
+    pkg = root / PKG.name
+    shutil.copytree(PKG, pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    spec = importlib.util.spec_from_file_location(
+        "copied_build", pkg / "utils" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return pkg, mod
+
+
+def _stub_nvcc(tmp_path, monkeypatch, mod):
+    """``nvcc`` replaced by a script that writes the file after ``-o``."""
+    stub = tmp_path / "nvcc"
+    stub.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w')"
+                    ".write('stub')\n")
+    stub.chmod(0o755)
+    monkeypatch.setattr(mod, "_nvcc", lambda: str(stub))
+
+
+@pytest.mark.parametrize("layout", ["build_dir_read_only",
+                                    "package_read_only", "writable"])
+def test_build_dir_falls_back_to_user_cache(layout, tmp_path, monkeypatch):
+    pkg, mod = _copied_build_module(tmp_path / "site")
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(cache))
+    _stub_nvcc(tmp_path, monkeypatch, mod)
+    if layout == "build_dir_read_only":
+        (pkg / "build").mkdir()
+    ro = {"build_dir_read_only": pkg / "build",
+          "package_read_only": pkg}.get(layout)
+    if ro is not None:
+        ro.chmod(0o555)
+    try:
+        where = Path(mod.build_dir())
+        mod.build_all(["schur_wchain"])
+        built = list(where.glob("libschur_wchain-*.so"))
+        # a second build finds the library and starts no nvcc
+        monkeypatch.setattr(mod, "_nvcc", lambda: pytest.fail("rebuilt"))
+        mod.build_all(["schur_wchain"])
+    finally:
+        if ro is not None:
+            ro.chmod(0o755)
+    want = (pkg / "build" if layout == "writable"
+            else cache / "instantsfm_tpu_torch" / "build")
+    assert where == want
+    assert len(built) == 1 and built[0].read_text() == "stub"
+    local = list((pkg / "build").glob("*")) if (pkg / "build").exists() \
+        else []
+    assert (local == built) == (layout == "writable")

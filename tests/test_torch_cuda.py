@@ -173,8 +173,14 @@ def test_bundle_adjustment_past_pc8_card_matches_cpu():
     limit (9,000 point slots > 8,192, so the PCG path) in float64 on the
     card against the CPU: K1 takes PC <= 8, so the PCG matvec runs its
     plain version on the card, counted in ``schur_wchain.plain_calls``, and
-    K1's launch counter does not move.  Poses agree to 1e-6, the LM
-    iteration count of each round within one."""
+    K1's launch counter does not move.  Quaternions agree to 1e-6,
+    translations to 4e-6, the LM iteration count of each round within one.
+    The translations' bound is the order of the sums: the card's
+    ``index_add_`` adds in a new order each run, and on the CPU a mere
+    reordering of the observations moves a translation by up to 1.07e-6;
+    ten card runs came within 5.8e-7-1.19e-6 of the CPU, and one earlier
+    run 1.95e-6 (``tools/pc8_spread_torch.py``).  4e-6 is twice the largest
+    of these."""
     _need_card()
     import chip_smoke
     from instantsfm_tpu_torch import config
@@ -203,7 +209,7 @@ def test_bundle_adjustment_past_pc8_card_matches_cpu():
     assert plain_c == 0 and n_plain > 0 and n_launch == 0
     assert all(abs(a - b) <= 1 for a, b in zip(it_c, it_g)), (it_c, it_g)
     np.testing.assert_allclose(img_g.qvec, img_c.qvec, atol=1e-6)
-    np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=1e-6)
+    np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=4e-6)
 
 
 def _rel_close(got, want, rel):

@@ -1,0 +1,57 @@
+"""Device-time breakdown of the port's 3DGS training step on the card.
+
+The counterpart of ``tools/trace_gs_step.py``: ``bench_gs_torch.py``'s pool
+(100k gaussians), view (800x608, SH 3) and full step, 3 warm steps, then
+``steps`` steps under ``torch.profiler``.  Prints device self-time by
+kernel name divided by the steps, largest first, with the device-busy time
+a step and its idle share, and writes the trace to
+``gs_step_trace_torch.json`` in ``chip_smoke.OUT_DIR``.
+
+    python3 tools/trace_gs_step_torch.py [steps (5)]
+
+Prints ONE JSON line last.  Needs a CUDA card.
+"""
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bench_gs_torch
+from instantsfm_tpu_torch.gs import composite as k23
+from instantsfm_tpu_torch.utils import bench
+from instantsfm_tpu_torch.utils.device import full_f32
+
+from chip_smoke import OUT_DIR
+
+
+def trace(steps, device, out_dir=OUT_DIR):
+    step = bench_gs_torch.setup(device=device)
+    for _ in range(bench_gs_torch.N_WARM):
+        loss = step()
+    float(loss)
+    f0, b0 = k23.composite_fwd.launches, k23.composite_bwd.launches
+    rec, prof = bench.device_breakdown(step, steps)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "gs_step_trace_torch.json"))
+    rec.update(metric="gs_step_device_breakdown",
+               k2_launches_per_step=(k23.composite_fwd.launches - f0) / steps,
+               k3_launches_per_step=(k23.composite_bwd.launches - b0) / steps)
+    return rec
+
+
+def main():
+    device = bench.require_card()
+    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 5
+    with full_f32():
+        rec = trace(steps, device)
+    bench.print_breakdown(rec)
+    rec["device"] = bench.device_record()
+    print(f"card: {rec['device']['nvidia_smi']}")
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
