@@ -111,9 +111,9 @@ Phases (any failure exits non-zero):
      losses, pose deltas and bilateral grids must agree.  K2/K3 are then
      held against their plain versions on one view's real tiles of the GS
      phase;
-  14. multi-device paths (``DIST`` line; the machine has one card, and
-     NCCL takes one rank a card): over a world-1 NCCL group in this
-     process, one BA solve at phase 4's shape through
+  14. multi-device paths (``DIST`` line, with the number of cards the
+     machine shows; NCCL takes one rank a card): over a world-1 NCCL group
+     in this process, one BA solve at phase 4's shape through
      ``parallel.sharded.optimize_sharded`` (the point-local partition, the
      all-reduces, K1 on the rank's buckets) against the single-device
      solve on the same input, one GP step at phase 4's GP size through the
@@ -129,7 +129,11 @@ Phases (any failure exits non-zero):
      8's images, keypoint counts, matched and verified pairs, and its
      matches but for ``DIST_MATCH_SHARE`` of them, the model must register
      as many views as phase 8's and meet its bars, and K1 must launch on
-     both ranks;
+     both ranks.  Where the machine shows two or more cards,
+     ``tools/multicard_torch.py`` then runs under torchrun at min(cards,
+     4) ranks, one a card, over NCCL, on the 500-image ring (its
+     2,000-image run is the tool's alone), and its failure fails the
+     script; on one card the line says that it did not run;
   15. the measuring entry points (``BENCH`` line): ``bench_torch`` at the
      ETH3D-indoor BA shape, ``bench_gs_torch`` at 100k gaussians, the BA,
      GP (2,000-image shape) and 3DGS trace tools with a few steps,
@@ -1390,6 +1394,32 @@ def write_ring_gt_model(path, gt):
     cmio.write_model(cams, imgs, [], path)
 
 
+def k1_stage_spy(done, first_input, launches):
+    """(``block_lm.schur_wchain``, a wrapper for it) for a mapper run: the
+    wrapper counts K1's launches by stage and camera-sum branch into
+    ``launches`` and keeps each stage's first input whose x is not 0 in
+    ``first_input``.  K1 runs only in GP and BA: a call made before
+    ``done`` holds "global_positioning" (the stage hook's names) is GP's."""
+    launch = block_lm.schur_wchain
+
+    def spy(*args):
+        # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
+        stage = ("bundle_adjustment" if "global_positioning" in done
+                 else "global_positioning")
+        if stage not in first_input and bool(args[2].any()):
+            first_input[stage] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        branch = ("shared" if k1.shared_table(args[2].shape[0],
+                                              args[0].shape[1], args[0].dtype)
+                  else "global")
+        before = k1.schur_wchain.launches
+        out = launch(*args)
+        key = f"{stage}/{branch}"
+        launches[key] = launches.get(key, 0) + k1.schur_wchain.launches - before
+        return out
+    return launch, spy
+
+
 def run_scale(device, root, scene=SCALE_2K):
     """The mapper on a ring scene of ``bench_e2e.py`` at a size its users
     run (``SCALE_2K``: 2,000 images, where BA's K1 sums cameras with global
@@ -1412,6 +1442,7 @@ def run_scale(device, root, scene=SCALE_2K):
 
     done, first_input, launches, errors_at, rounds = set(), {}, {}, {}, []
     gp_images = {}
+    launch, k1_spy = k1_stage_spy(done, first_input, launches)
 
     def hook(name, cameras, images, tracks):
         done.add(name)
@@ -1423,25 +1454,6 @@ def run_scale(device, root, scene=SCALE_2K):
             errors_at[name] = error_summary(*scale_errors(
                 images.qvec[reg], images.centers()[reg], gt, reg))
             gp_images.setdefault("idx", reg)
-
-    launch = block_lm.schur_wchain
-
-    def k1_spy(*args):
-        # K1 runs only in GP and BA: before GP's hook, a call is GP's.
-        # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
-        stage = ("bundle_adjustment" if "global_positioning" in done
-                 else "global_positioning")
-        if stage not in first_input and bool(args[2].any()):
-            first_input[stage] = tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args)
-        branch = ("shared" if k1.shared_table(args[2].shape[0],
-                                              args[0].shape[1], args[0].dtype)
-                  else "global")
-        before = k1.schur_wchain.launches
-        out = launch(*args)
-        key = f"{stage}/{branch}"
-        launches[key] = launches.get(key, 0) + k1.schur_wchain.launches - before
-        return out
 
     ba_optimize = ba.optimize
 
@@ -2926,6 +2938,10 @@ DIST_MATCH_SHARE = 0.001
 # degrees in three runs on an H100 (its float32 PCG path follows K1's
 # atomic camera sums), against 0.24 degrees before it
 DIST_BA_ROT_RATIO = 1.5
+# the multi-card run from this script: the 500-image ring keeps it within a
+# few minutes (tools/multicard_torch.py's default, 2,000 images, is its own)
+MULTICARD_IMAGES = 500
+MULTICARD_TIMEOUT_S = 720
 
 
 def free_port() -> int:
@@ -3074,27 +3090,30 @@ def dist_gp(device, gt, gp_rec):
     return rec, checks
 
 
-def dist_gs(device, root):
+def dist_gs(device, root, result="dist", batch=DIST_GS_BATCH, rank=0,
+            world=1):
     """The gaussian-sharded 3DGS loss and its gradients on the GS phase's
-    scene (batch of 2 views, the initial scales perturbed per axis) over
-    the world-1 NCCL group, against the Runner's single-device loss; then
-    one distributed train step, whose K2
-    and K3 launches are counted; K2/K3 held against their plain versions on
-    the distributed step's first view."""
+    scene (``batch`` views, the initial scales perturbed per axis) over the
+    default group's ``world`` ranks, gathered, against this card's
+    single-device loss and gradients (the Runner's, one device); then one
+    distributed train step, whose K2 and K3 launches are counted; K2/K3
+    held against their plain versions on the step's first view of this
+    rank.  Returns (record, checks)."""
     from instantsfm_tpu_torch.gs import distributed as gd
 
-    runner = Runner(gs_main_cfg(root, "dist", batch_size=DIST_GS_BATCH),
+    runner = Runner(gs_main_cfg(root, result, batch_size=batch),
                     log=lambda *a: None, device=device)
     views = runner._views(np.random.default_rng(SEED))
     sh_degree = 3
     pool = runner.splats
+    G = pool.means.shape[0]
     with torch.no_grad():
         # anisotropic scales: the initial gaussians are isotropic, so their
         # quaternion gradients would be float noise, which no bar can hold
         pool.scales.add_(0.3 * torch.randn(
             pool.scales.shape, generator=torch.Generator().manual_seed(SEED)
-        ).to(device))
-    offset = torch.zeros((pool.means.shape[0], 2), device=device,
+        ).to(pool.scales.device))
+    offset = torch.zeros((G, 2), device=pool.means.device,
                          requires_grad=True)
     loss1 = torch.stack([runner._loss(pool, v, offset, sh_degree)[0]
                          for v in views]).mean()
@@ -3102,24 +3121,28 @@ def dist_gs(device, root):
     g1 = {f: getattr(pool, f).grad.clone() for f in gs_splats.FLOAT_FIELDS}
     g1["offset"] = offset.grad.clone()
 
-    batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
-             "K": torch.stack([v["K"] for v in views]),
-             "image": torch.stack([v["image"] for v in views])}
+    b = batch // world
+    mine = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
+            "K": torch.stack([v["K"] for v in views]),
+            "image": torch.stack([v["image"]
+                                  for v in views[rank * b:(rank + 1) * b]])}
 
     def shard():
-        sp = gd.shard_splats(gd.pad_splats(pool, 1), 0, 1)
+        sp = gd.shard_splats(gd.pad_splats(pool, world), rank, world)
         for f in gs_splats.FLOAT_FIELDS:
             getattr(sp, f).requires_grad_(True)
         return sp
 
     sp = shard()
-    offset2 = torch.zeros_like(offset, requires_grad=True)
+    offset2 = torch.zeros((sp.means.shape[0], 2), device=sp.means.device,
+                          requires_grad=True)
     objective, loss2, _, _, _ = gd.distributed_loss(
-        sp, offset2, batch, GS_W, GS_H, sh_degree, tiles_per_gauss=16,
+        sp, offset2, mine, GS_W, GS_H, sh_degree, tiles_per_gauss=16,
         tile_capacity=512)
     objective.backward()
-    g2 = {f: getattr(sp, f).grad for f in gs_splats.FLOAT_FIELDS}
-    g2["offset"] = offset2.grad
+    g2 = {f: gd.gather_rows(getattr(sp, f).grad)[:G]
+          for f in gs_splats.FLOAT_FIELDS}
+    g2["offset"] = gd.gather_rows(offset2.grad)[:G]
     grad_rel = {f: (g2[f] - g1[f]).abs().max().item()
                 / max(g1[f].abs().max().item(), 1e-30) for f in g1}
 
@@ -3141,15 +3164,15 @@ def dist_gs(device, root):
     k23.composite_fwd.launches = k23.composite_bwd.launches = 0
     try:
         t0 = time.perf_counter()
-        loss3, g_offset, radii, seen = step(sp, batch, sh_degree)
+        loss3, g_offset, radii, seen = step(sp, mine, sh_degree)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
     finally:
         gs_raster.composite.composite_tiles = composite
     k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
-    k2_rec, k3_rec = k23_case("dist_view0", *kept[0], reps=0,
+    k2_rec, k3_rec = k23_case(f"dist_rank{rank}_view0", *kept[0], reps=0,
                               allow_ties=True)
-    rec = dict(views=DIST_GS_BATCH, pool=int(pool.means.shape[0]),
+    rec = dict(views=batch, views_per_rank=b, world=world, pool=G,
                loss_single=loss1.item(), loss_dist=loss2.item(),
                loss_step=loss3.item(), grad_max_rel_err=grad_rel,
                step_ms=step_ms, k2_launches=k2n, k3_launches=k3n,
@@ -3162,8 +3185,8 @@ def dist_gs(device, root):
         "(relative to each field's largest)":
             max(grad_rel.values()) <= 1e-4,
         "distributed 3DGS step: loss finite": math.isfinite(rec["loss_step"]),
-        "distributed 3DGS step: K2 and K3 launched once per view":
-            k2n == k3n == DIST_GS_BATCH,
+        "distributed 3DGS step: K2 and K3 launched once per view of the "
+        "rank": k2n == k3n == b,
     }
     return rec, checks
 
@@ -3324,11 +3347,64 @@ def dist_two_ranks(pix_work, pix_gt, pix_rec):
     return rec, checks
 
 
+def run_multicard(world, images=MULTICARD_IMAGES):
+    """``tools/multicard_torch.py --images images`` under torchrun at
+    ``world`` ranks, one a card (its whole output in
+    ``OUT_DIR/multicard_smoke.log``); returns the key numbers of its
+    summary line, or raises where it fails, does not end within
+    ``MULTICARD_TIMEOUT_S`` (its processes are then killed) or prints no
+    summary."""
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "multicard_smoke.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}",
+           os.path.join(repo, "tools", "multicard_torch.py"),
+           "--images", str(images)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                                stderr=log, text=True, start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=MULTICARD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        log.write(out)
+    seconds = time.perf_counter() - t0
+    summary = next((json.loads(line) for line in reversed(out.splitlines())
+                    if line.startswith('{"multicard"')), None)
+    if proc.returncode or summary is None or not summary["ok"]:
+        raise AssertionError(
+            f"multi-card run at {world} ranks failed (exit "
+            f"{proc.returncode}): " + (json.dumps(summary["multicard"][
+                "failed"]) if summary else out[-3000:]))
+    m = summary["multicard"]
+    four, one = m["scale"]["four"], m["scale"]["one"]
+    return dict(world=world, images=images, seconds=seconds,
+                scale_s=four["total_s"], scale_s_one_card=one["total_s"],
+                rot_err_deg_mean=four["rot_err_deg_mean"],
+                rot_err_deg_mean_one_card=one["rot_err_deg_mean"],
+                k1_launches_by_rank=[r["k1_launches"]
+                                     for r in m["scale"]["four_by_rank"]],
+                feat_s=m["feat"]["four"]["seconds"],
+                feat_s_one_card=m["feat"]["one"]["seconds"],
+                gs_median_step_ms=m["gs"]["four"]["median_later_step_ms"],
+                gs_median_step_ms_one_card=m["gs"]["one"][
+                    "median_later_step_ms"],
+                gs_psnr=m["gs"]["four"]["psnr"],
+                gs_psnr_one_card=m["gs"]["one"]["psnr"])
+
+
 def run_dist(device, gs_root, pix_work, pix_gt, pix_rec, gt, gp_rec):
     """The multi-device paths (``DIST`` line): over a world-1 NCCL group in
     this process, the sharded BA solve and GP step and the distributed
     3DGS step, each against its single-device run; then two ranks on the
-    card over gloo through the CLIs (``dist_two_ranks``)."""
+    card over gloo through the CLIs (``dist_two_ranks``); then, where the
+    machine shows two or more cards, ``run_multicard``."""
     multihost.initialize(coordinator=f"localhost:{free_port()}",
                          num_processes=1, process_id=0, device=device)
     try:
@@ -3339,10 +3415,22 @@ def run_dist(device, gs_root, pix_work, pix_gt, pix_rec, gt, gp_rec):
     finally:
         multihost.shutdown()
     two_rec, two_checks = dist_two_ranks(pix_work, pix_gt, pix_rec)
+    cards = torch.cuda.device_count()
+    multi_checks = {}
+    if cards < 2:
+        multicard = "not run: one card"
+    else:
+        try:
+            multicard = run_multicard(min(cards, 4))
+        except AssertionError as e:
+            multicard = str(e)
+        multi_checks["multi-card run passes"] = isinstance(multicard, dict)
     rec = dict(backend=backend, world=1, ba=ba_rec, gp=gp_rec_d, gs=gs_rec,
-               two_ranks_gloo=two_rec, card=card_line())
+               two_ranks_gloo=two_rec, cards=cards, multicard=multicard,
+               card=card_line())
     log("DIST " + json.dumps(rec))
-    failed = [k for c in (ba_checks, gp_checks, gs_checks, two_checks)
+    failed = [k for c in (ba_checks, gp_checks, gs_checks, two_checks,
+                          multi_checks)
               for k, ok in c.items() if not ok]
     if failed:
         raise AssertionError(f"multi-device path failed: {failed}")

@@ -14,7 +14,11 @@ round through the card or through float.
   single-process run never blocks;
 * pair fan-out: feature matching, extraction and relative pose are
   independent over images and pairs; each process takes a strided slice,
-  and the fixed-shape results are all-gathered.
+  and the fixed-shape results are all-gathered;
+* replicated stages: every process runs view-graph calibration and
+  rotation averaging whole and takes rank 0's result
+  (``broadcast_host_arrays``), since float atomics make the cards'
+  results differ in their last bits.
 
 Launch on the CPU, one command per process:
 
@@ -162,6 +166,29 @@ def allgather_host_arrays(arr: np.ndarray) -> np.ndarray:
     dist.all_gather(out, t, group=host_group())
     return np.stack([o.numpy().view(arr.dtype).reshape(arr.shape)
                      for o in out])
+
+
+def broadcast_host_arrays(*arrays):
+    """Rank 0's ``arrays`` on every process, byte for byte (every process
+    passes arrays of the same shapes and dtypes); the arrays themselves
+    in a single process.
+
+    A stage that every rank runs whole on its own card (view-graph
+    calibration, rotation averaging) sums with float atomics in another
+    order on each card, so its results differ in the last bits from rank
+    to rank; the host decisions that follow (thresholds, filters, the
+    problems the sharded solves share) must be the same on every rank, so
+    every rank takes rank 0's result."""
+    if process_count() == 1:
+        return arrays
+    out = []
+    for arr in arrays:
+        arr = np.ascontiguousarray(arr)
+        t = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+        if t.numel():
+            dist.broadcast(t, 0, group=host_group())
+        out.append(t.numpy().view(arr.dtype).reshape(arr.shape))
+    return tuple(out)
 
 
 def gather_pair_results(local_idx: np.ndarray, local_vals: np.ndarray,

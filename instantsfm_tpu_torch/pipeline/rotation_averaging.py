@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.math import lie
+from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.scene.types import Images, ViewGraph
 from instantsfm_tpu_torch.utils import debug as _dbg
 from instantsfm_tpu_torch.utils.device import resolve_device
@@ -305,7 +306,8 @@ def estimate_rotations(view_graph: ViewGraph, images: Images,
     syncs = SyncCounter()
     q = _ra_core(data, len(reg_idx), opts, syncs)
     _dbg.stat_add("ra_syncs", dict(syncs.counts))
-    q = q.cpu().numpy().astype(np.float64)
+    # under a process group every rank solves; all take rank 0's result
+    q, = multihost.broadcast_host_arrays(q.cpu().numpy().astype(np.float64))
     if not np.all(np.isfinite(q)):
         return False
     images.qvec[reg_idx] = q

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.math.epipolar import svd3x3
+from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.scene.types import (CONFIG_CALIBRATED,
                                               CONFIG_UNCALIBRATED, Cameras,
                                               Images, ViewGraph)
@@ -198,8 +199,10 @@ def solve_view_graph_calibration(view_graph: ViewGraph, cameras: Cameras,
         cauchy_thres=float(opts["thres_loss_function"]),
         ftol=float(opts["function_tolerance"]), syncs=syncs)
     _dbg.stat_add("vgc_syncs", dict(syncs.counts))
-    f = f.cpu().numpy().astype(np.float64)
-    pair_err_sq = pair_err_sq.cpu().numpy().astype(np.float64)
+    # under a process group every rank solves; all take rank 0's result
+    f, pair_err_sq = multihost.broadcast_host_arrays(
+        f.cpu().numpy().astype(np.float64),
+        pair_err_sq.cpu().numpy().astype(np.float64))
 
     # ---- focal rejection
     for c in range(cameras.num_cameras):

@@ -4,10 +4,13 @@ A wheel built offline from the project's metadata carries both
 ``instantsfm_tpu_torch/csrc/*.cu`` and the port's console scripts, and
 ``utils/build.py`` builds into ``<package>/build`` where it can write there
 and into the user cache directory where it cannot (a read-only installed
-package).  ``nvcc`` is replaced by a stub that writes its output file: no
-compile."""
+package), and processes that build at once each find a whole library.
+``nvcc`` is replaced by a stub that writes its output file: no compile."""
 
+import hashlib
 import importlib.util
+import json
+import os
 import shutil
 import subprocess
 import sys
@@ -99,3 +102,52 @@ def test_build_dir_falls_back_to_user_cache(layout, tmp_path, monkeypatch):
     local = list((pkg / "build").glob("*")) if (pkg / "build").exists() \
         else []
     assert (local == built) == (layout == "writable")
+
+
+RACE_SCRIPT = """
+import importlib.util, hashlib, json, os, sys, time
+spec = importlib.util.spec_from_file_location("copied_build", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.001)
+time.sleep(0.04 * int(sys.argv[3]))
+mod.build_all(["schur_wchain", "composite_tiles"])
+print(json.dumps({n: hashlib.sha256(mod._target(n).read_bytes()).hexdigest()
+                  for n in ("schur_wchain", "composite_tiles")}))
+"""
+
+
+def test_processes_building_at_once_find_whole_libraries(tmp_path):
+    """Four processes reach ``build_all`` on a fresh package 40 ms apart,
+    as the ranks of a multi-process run do, while the first is still
+    compiling: each compiles into a file of its own and moves it into
+    place, so whatever each then finds under the library's name is a whole
+    library, and no partial file is left.  The stub ``nvcc`` writes its
+    output in 32 pieces 5 ms apart, so a build written in place would be
+    found half done."""
+    pkg, _ = _copied_build_module(tmp_path / "site")
+    stub_dir = tmp_path / "bin"
+    stub_dir.mkdir()
+    stub = stub_dir / "nvcc"
+    stub.write_text(f"#!{sys.executable}\nimport sys, time\n"
+                    "with open(sys.argv[sys.argv.index('-o') + 1], 'wb') as f:\n"
+                    "    for _ in range(32):\n"
+                    "        f.write(b'x' * 4096)\n"
+                    "        f.flush()\n"
+                    "        time.sleep(0.005)\n")
+    stub.chmod(0o755)
+    go = tmp_path / "go"
+    env = dict(os.environ, PATH=f"{stub_dir}{os.pathsep}{os.environ['PATH']}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RACE_SCRIPT, str(pkg / "utils" / "build.py"),
+         str(go), str(i)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(4)]
+    go.touch()
+    outs = [p.communicate(timeout=60) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    whole = hashlib.sha256(b"x" * 4096 * 32).hexdigest()
+    for out, _ in outs:
+        assert set(json.loads(out).values()) == {whole}
+    built = sorted(p.name for p in (pkg / "build").iterdir())
+    assert len(built) == 2 and all(n.endswith(".so") for n in built), built

@@ -820,6 +820,63 @@ def test_distributed_gs_step_nccl_matches_single_device(nccl_world1,
 
 
 @pytest.mark.cuda
+def test_nccl_world_matches_one_card(tmp_path):
+    """Where the machine has two or more cards: a group of min(cards, 4)
+    processes, one a card, formed through torchrun's variables over NCCL
+    (``tests/torch_dist.py``'s "world" scenario), against this process on
+    one card.  ``optimize_sharded`` of a 20-image float64 BA solve (PCG,
+    K1 on each rank's buckets) against the single-device bucketed
+    ``optimize_auto``: the same LM iterations within one, poses within
+    1e-6 and points within 1e-6 of the extent (as
+    ``test_sharded_ba_nccl_matches_single_device``); the gaussian-sharded
+    3DGS loss of one view a rank and its gathered gradients within 1e-5
+    and 1e-4 of each field's largest, K2 and K3 once on each rank."""
+    _need_card()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two or more cards, the machine has {cards}")
+    import chip_smoke
+    from instantsfm_tpu_torch.parallel import sharded
+    # pytest puts this directory on the path (an installed package named
+    # "tests" may shadow it as a package)
+    from torch_dist import gs_shard_grads, lm_problem, run_group, to_device
+
+    world = min(cards, 4)
+    cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                       num_pts=9000)
+    params, obs = chip_smoke.scene_problem(cameras, images, tracks,
+                                           torch.float64, "cpu")
+    scene = str(tmp_path / "gs")
+    chip_smoke.make_gs_scene(scene, "cpu", 600, 6, 96, 72)
+    ranks = run_group(world, "world", dict(
+        device="cuda", pairs=11, lm={"ba": (params, obs, 0)},
+        gs=dict(scene=scene, sh_degree=1, tile_capacity=128)),
+        str(tmp_path / "group"), launcher="torchrun")
+    assert [r["device"] for r in ranks] == [f"cuda:{r}" for r in range(world)]
+    assert all(r["backend"] == "nccl" for r in ranks)
+
+    problem, kernel, cfg = lm_problem("ba")
+    cam1, pts1, h1 = sharded.optimize_auto(
+        problem, kernel, cfg, to_device(params, "cuda"),
+        to_device(obs, "cuda"), device="cuda")
+    got = ranks[0]["ba_sharded"]
+    assert all(r["ba_sharded"]["k1_launches"] > 0 for r in ranks)
+    assert abs(len(got["history"]) - len(h1)) <= 1
+    for k in ("q", "t"):
+        np.testing.assert_allclose(got["cam"][k], cam1[k].cpu(), atol=1e-6)
+    pts1 = pts1.cpu().numpy()
+    extent = float(np.linalg.norm(pts1.max(0) - pts1.min(0)))
+    assert float(np.abs(got["pts"] - pts1).max()) < 1e-6 * extent
+
+    _, _, _, loss, grads = gs_shard_grads(scene, world, 1, 128, "cuda")
+    for r in ranks:
+        assert abs(r["gs"]["loss"] - loss) <= 1e-5 * loss
+        assert r["gs"]["k2_launches"] == r["gs"]["k3_launches"] == 1
+    for f, g in grads.items():
+        _rel_close(torch.as_tensor(ranks[0]["gs"]["grads"][f]), g.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
 def test_relative_pose_errors_card_matches_cpu():
     """``eval.align.relative_pose_errors_deg`` on the card against the CPU
     (float64 on both), 300 images, 50,000 of the 89,700 ordered pairs

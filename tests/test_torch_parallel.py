@@ -12,6 +12,18 @@ They are held to ``tests/test_sharded.py``'s bars: cost rtol 1e-6, points
 ``optimize_auto`` on the conftest's 8 virtual devices within that file's
 ``test_optimize_auto_*_parity`` bars (a 2-way against an 8-way split:
 sums in other orders).
+
+A second group, of four processes formed through torchrun's variables
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``), runs the point-local steps against JAX's on 4 of the
+virtual devices and one process's, ``optimize_sharded`` against one
+process's ``optimize_auto`` (the bars above), ``gather_pair_results`` of 11
+pairs, the replicated stages (view-graph calibration, rotation averaging)
+with each rank's solves moved, which must leave rank 0's (one process's)
+result on every rank, and the gaussian-sharded 3DGS loss and gradients of
+4 views against one process's (float32: loss within 1e-5, gradients
+within 1e-4 of each field's largest, as
+``tests/test_torch_gs_distributed.py``).
 """
 
 import dataclasses
@@ -33,9 +45,10 @@ from tests.synthetic import make_scene
 from tests.test_block_lm import _ba_setup
 from tests.test_sharded import _gp_setup
 from tests.torch_cpu import lean_cpu  # noqa: F401  (module fixture)
-from tests.torch_dist import lm_problem, lm_state0, run_group
+from tests.torch_dist import gs_shard_grads, lm_problem, lm_state0, run_group
 
 STEPS = 3
+WORLD4, PAIRS4 = 4, 11
 
 
 def _jax_problem(kind):
@@ -98,11 +111,39 @@ def single(problems):
     return out
 
 
-def _jax_pointlocal(kind, problems):
+@pytest.fixture(scope="module")
+def gs_scene(tmp_path_factory):
+    import chip_smoke
+    scene = str(tmp_path_factory.mktemp("gs_world4"))
+    chip_smoke.make_gs_scene(scene, "cpu", 600, 6, 96, 72)
+    return scene
+
+
+@pytest.fixture(scope="module")
+def ring_db(tmp_path_factory):
+    import chip_smoke
+    db = str(tmp_path_factory.mktemp("ring4") / "ring.db")
+    chip_smoke.write_ring_db(db, num_cams=14, num_pts=600, window=6)
+    return db
+
+
+@pytest.fixture(scope="module")
+def group4(problems, gs_scene, ring_db, tmp_path_factory):
+    """Every result of the four-process group, by rank."""
+    payload = {"device": "cpu", "pairs": PAIRS4, "ring_db": ring_db,
+               "lm": {k: (*_to_torch(p, o), STEPS)
+                      for k, (_, p, o) in problems.items()},
+               "gs": dict(scene=gs_scene, sh_degree=1, tile_capacity=128)}
+    return run_group(WORLD4, "world", payload,
+                     str(tmp_path_factory.mktemp("world4")),
+                     launcher="torchrun")
+
+
+def _jax_pointlocal(kind, problems, n=8):
     problem, params, obs = problems[kind]
     cfg = _jax_cfg(kind)
-    mesh = jsh.make_mesh(jax.devices()[:8])
-    pp, po, meta = jsh.partition_points(params, obs, 8)
+    mesh = jsh.make_mesh(jax.devices()[:n])
+    pp, po, meta = jsh.partition_points(params, obs, n)
     pp, po = jsh.shard_problem_pointlocal(mesh, pp, po)
     state = jbl.LMState(pp, jnp.asarray(1.0 / cfg.radius_init),
                         jnp.asarray(jnp.inf))
@@ -228,6 +269,105 @@ def test_optimize_auto_matches_jax(group, problems, kind, monkeypatch):
         np.testing.assert_allclose(got["pts"], np.asarray(pts), atol=1e-7)
         np.testing.assert_allclose(got["cam"]["c"], np.asarray(cam["c"]),
                                    atol=1e-8)
+
+
+def test_initialize_through_torchrun_variables(group4):
+    """``initialize`` read torchrun's variables: four ranks in order, each
+    with its ``LOCAL_RANK``, over gloo on the CPU, no ``ISFM_*`` set; a
+    second call changes nothing."""
+    for r, out in enumerate(group4):
+        assert (out["rank"], out["world"]) == (r, WORLD4)
+        assert out["local_rank"] == str(r)
+        assert out["backend"] == "gloo" and out["again"]
+        assert not out["isfm_env"]
+
+
+def test_gather_pair_results_at_world4(group4):
+    """11 pairs over 4 ranks: strided slices of 3, 3, 3 and 2, padded to
+    the longest, reassembled in order on every rank."""
+    assert [len(out["mine"]) for out in group4] == [3, 3, 3, 2]
+    for out in group4:
+        np.testing.assert_array_equal(
+            out["mine"], np.arange(out["rank"], PAIRS4, WORLD4))
+        np.testing.assert_array_equal(
+            out["gathered"],
+            np.arange(PAIRS4)[:, None] * 10 + np.arange(3))
+
+
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_pointlocal_step_world4_matches_single_and_jax(group4, single,
+                                                       problems, kind):
+    """Three point-local steps at world size 4 against three
+    single-process steps of the port and three of JAX's point-local step
+    on 4 virtual devices (the same partition)."""
+    got = group4[0][f"{kind}_pointlocal"]
+    for out in group4[1:]:
+        np.testing.assert_array_equal(out[f"{kind}_pointlocal"]["pts"],
+                                      got["pts"])
+    _close(got, single[kind], kind)
+    jstate, jmeta = _jax_pointlocal(kind, problems, WORLD4)
+    np.testing.assert_allclose(got["cost"], float(jstate.cost), rtol=1e-6)
+    if kind == "ba":
+        np.testing.assert_allclose(
+            got["pts"], jsh.unpartition_points(jstate.params.pts, jmeta),
+            atol=1e-6)
+        np.testing.assert_allclose(got["cam"]["q"],
+                                   np.asarray(jstate.params.cam["q"]),
+                                   atol=1e-8)
+    else:
+        np.testing.assert_allclose(got["cam"]["c"],
+                                   np.asarray(jstate.params.cam["c"]),
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_optimize_sharded_world4_matches_one_process(group4, problems,
+                                                     kind):
+    """``optimize_sharded`` over four ranks (bucketing with the track pad
+    rounded to 4, the cameras broadcast from rank 0, the points gathered
+    back) against one process's ``optimize_auto`` on the whole problem:
+    the same LM iterations, and ``test_optimize_auto_matches_jax``'s
+    bars."""
+    problem, kernel, cfg = lm_problem(kind)
+    tp, to = _to_torch(*problems[kind][1:])
+    cam, pts, hist = tsh.optimize_auto(problem, kernel, cfg, tp, to,
+                                       device="cpu")
+    got = group4[0][f"{kind}_sharded"]
+    assert len(got["history"]) == len(hist)
+    pts, cam = convert.to_numpy(pts), convert.to_numpy(cam)
+    if kind == "ba":
+        np.testing.assert_allclose(got["pts"], pts, atol=1e-8)
+        np.testing.assert_allclose(got["cam"]["q"], cam["q"], atol=1e-10)
+        np.testing.assert_allclose(got["cam"]["t"], cam["t"], atol=1e-8)
+    else:
+        np.testing.assert_allclose(got["pts"], pts, atol=1e-7)
+        np.testing.assert_allclose(got["cam"]["c"], cam["c"], atol=1e-8)
+
+
+def test_replicated_stages_take_rank0_result(group4, ring_db):
+    """View-graph calibration and rotation averaging run whole on every
+    rank, whose float atomics on a card move their solves' last bits; each
+    rank here moves them by its rank, and every rank still ends with rank
+    0's focal lengths, rotations and valid pairs, which are one process's
+    (the host's thresholds and the sharded solves' problems that follow
+    must be the same on every rank)."""
+    from tests.torch_dist import replicated_stages
+    want = replicated_stages(ring_db, "cpu")
+    for out in group4:
+        for k, v in want.items():
+            np.testing.assert_array_equal(out["replicated"][k], v, err_msg=k)
+
+
+def test_distributed_gs_world4_matches_one_process(group4, gs_scene):
+    """The gaussian-sharded 3DGS loss of 4 views (one a rank after the
+    all-to-all) and its gathered gradients against one process's."""
+    _, _, _, loss, grads = gs_shard_grads(gs_scene, WORLD4, 1, 128, "cpu")
+    for out in group4:
+        assert abs(out["gs"]["loss"] - loss) <= 1e-5 * loss
+    for f, g in grads.items():
+        g = g.numpy()
+        err = np.abs(group4[0]["gs"]["grads"][f] - g).max()
+        assert err <= 1e-4 * max(np.abs(g).max(), 1e-30), f
 
 
 def test_lm_step_under_a_group_needs_a_named_solver(problems):

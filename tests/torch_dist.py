@@ -2,10 +2,14 @@
 its worker processes run.
 
 ``run_group(world, scenario, payload, tmp)`` starts ``world`` processes of
-``python -m tests.torch_dist``; each joins a gloo group through the
-``ISFM_*`` environment (``parallel.multihost.initialize``, 60 s timeout on
-every collective), runs ``SCENARIOS[scenario](payload, tmp)`` and pickles
-its result.  This module imports torch and the port only, never JAX, so a
+``python tests/torch_dist.py`` (by its path: an installed package named
+``tests`` would shadow this directory's); each joins a group through the ``ISFM_*``
+environment, or through torchrun's (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) with ``launcher="torchrun"``
+(``parallel.multihost.initialize``, 60 s timeout on every collective;
+gloo, or NCCL with one card a rank where ``payload["device"]`` is
+``"cuda"``), runs ``SCENARIOS[scenario](payload, tmp)`` and pickles its
+result.  This module imports torch and the port only, never JAX, so a
 worker starts in about two seconds.  Workers run torch on one thread: the
 ops are small, and beside the suite's other workers torch's thread team
 spins (``tests/torch_cpu.py``).
@@ -33,21 +37,29 @@ def _free_port() -> int:
 
 
 def run_group(world: int, scenario: str, payload, tmp: str,
-              timeout: float = 300.0):
-    """Results of ``scenario`` on every rank of a gloo group of ``world``
+              timeout: float = 300.0, launcher: str = "isfm"):
+    """Results of ``scenario`` on every rank of a group of ``world``
     processes, in rank order.  A worker that fails, or a group that does
     not end within ``timeout`` seconds, fails the caller with the
     workers' output."""
     os.makedirs(tmp, exist_ok=True)
     with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
         pickle.dump(payload, f)
-    env = dict(os.environ, ISFM_COORDINATOR=f"localhost:{_free_port()}",
-               ISFM_NUM_PROCESSES=str(world), OMP_NUM_THREADS="1",
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("ISFM_NO_SHARD", None)
+    port = str(_free_port())
+    if launcher == "torchrun":
+        ranks = [dict(MASTER_ADDR="localhost", MASTER_PORT=port,
+                      WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
+                 for r in range(world)]
+    else:
+        ranks = [dict(ISFM_COORDINATOR=f"localhost:{port}",
+                      ISFM_NUM_PROCESSES=str(world), ISFM_PROCESS_ID=str(r))
+                 for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.torch_dist", scenario, tmp],
-        env=dict(env, ISFM_PROCESS_ID=str(r)), cwd=REPO,
+        [sys.executable, os.path.abspath(__file__), scenario, tmp],
+        env=dict(env, **ranks[r]), cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     outs = []
@@ -262,8 +274,179 @@ def scenario_gs(payload, tmp):
     return out
 
 
+def to_device(x, device):
+    """Tensors in ``x`` (nested dicts and named tuples) moved to
+    ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    return x
+
+
+def gs_shard_grads(scene, views, sh_degree, tile_capacity, device):
+    """The distributed-3DGS check's single-device side, on ``device``:
+    a Runner's pool on ``scene`` (its initial scales perturbed per axis:
+    isotropic gaussians' quaternion gradients are float noise, whose sum
+    order no bar can hold) and its first ``views`` training views, with
+    the Runner's loss averaged over them and its gradients.  Returns
+    (runner, pool, views, loss, gradients by field and "offset")."""
+    from instantsfm_tpu_torch.gs.splats import FLOAT_FIELDS
+    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+    runner = Runner(GSConfig(
+        data_dir=scene, result_dir=os.path.join(scene, f"out_{os.getpid()}"),
+        batch_size=views, sh_degree=sh_degree, tile_capacity=tile_capacity,
+        eval_steps=(), save_steps=(), tb_every=0),
+        log=lambda *a: None, device=device)
+    batch = runner._views(np.random.default_rng(0))
+    pool = runner.splats
+    with torch.no_grad():
+        pool.scales.add_(0.3 * torch.randn(
+            pool.scales.shape, generator=torch.Generator().manual_seed(0)
+        ).to(pool.scales.device))
+    offset = torch.zeros((pool.means.shape[0], 2), device=pool.means.device,
+                         requires_grad=True)
+    loss = torch.stack([runner._loss(pool, v, offset, sh_degree)[0]
+                        for v in batch]).mean()
+    loss.backward()
+    grads = {f: getattr(pool, f).grad for f in FLOAT_FIELDS}
+    grads["offset"] = offset.grad
+    return runner, pool, batch, loss.item(), grads
+
+
+def replicated_stages(db, device, offset=0):
+    """The mapper's stages from view-graph calibration to rotation
+    averaging (the ones every rank of a group runs whole) on the database
+    ``db``, where ``offset`` moves this process's solves before the host
+    reads them, as another card's float atomics would: the calibration's
+    focal lengths scaled by 1 + 1e-3 ``offset`` and its pair errors raised
+    by 3 ``offset`` (past the 2 px threshold on every pair), the rotation
+    solve's quaternions moved by 1e-6 ``offset``.  Returns the focal
+    lengths, valid pairs and rotations the stages leave."""
+    from instantsfm_tpu_torch.config import Config
+    from instantsfm_tpu_torch.io.colmap_db import read_colmap_database
+    from instantsfm_tpu_torch.pipeline import (filters, preprocess, relpose,
+                                               rotation_averaging, vgc)
+    vg, cams, imgs, name = read_colmap_database(db)
+    cfg = Config(name)
+    solve_f, solve_q = vgc._vgc_solve, rotation_averaging._ra_core
+
+    def moved_f(*args, **kwargs):
+        f, err = solve_f(*args, **kwargs)
+        return f * (1 + 1e-3 * offset), err + 3.0 * offset
+
+    vgc._vgc_solve = moved_f
+    rotation_averaging._ra_core = lambda *a, **k: solve_q(*a, **k) \
+        + 1e-6 * offset
+    inl = cfg.INLIER_THRESHOLD_OPTIONS
+    try:
+        preprocess.update_image_pairs_config(vg, cams, imgs)
+        preprocess.decompose_relpose(vg, cams, imgs)
+        vgc.solve_view_graph_calibration(
+            vg, cams, imgs, cfg.VIEW_GRAPH_CALIBRATOR_OPTIONS, device=device)
+        focal = np.array([cams.focal(c) for c in range(cams.num_cameras)])
+        valid = vg.valid.copy()
+        relpose.undistort_images(cams, imgs, device=device)
+        relpose.estimate_relative_pose(vg, cams, imgs, chunk_pairs=8,
+                                       device=device)
+        filters.filter_inlier_num(vg, inl["min_inlier_num"])
+        filters.filter_inlier_ratio(vg, inl["min_inlier_ratio"])
+        vg.keep_largest_connected_component(imgs)
+        rotation_averaging.estimate_rotations(
+            vg, imgs, cfg.ROTATION_ESTIMATOR_OPTIONS, cfg.L1_SOLVER_OPTIONS,
+            device=device)
+    finally:
+        vgc._vgc_solve, rotation_averaging._ra_core = solve_f, solve_q
+    return dict(focal=focal, valid=valid, qvec=imgs.qvec.copy(),
+                registered=imgs.registered.copy())
+
+
+def scenario_world(payload, tmp):
+    """At this group's size: how ``initialize`` formed the group,
+    ``gather_pair_results`` of ``payload["pairs"]`` strided pairs, per LM
+    problem of ``payload["lm"]`` its point-local steps and
+    ``optimize_sharded``, with ``payload["ring_db"]`` the replicated stages
+    with each rank's solves moved by its rank (``replicated_stages``), and,
+    with ``payload["gs"]``, the gaussian-sharded 3DGS loss and gradients of
+    one batch with one view a rank (K2/K3 launches counted), on
+    ``payload["device"]``."""
+    import torch.distributed as dist
+
+    from instantsfm_tpu_torch.gs import composite as k23
+    from instantsfm_tpu_torch.gs import distributed as gd
+    from instantsfm_tpu_torch.gs.splats import FLOAT_FIELDS
+    from instantsfm_tpu_torch.parallel import multihost, sharded
+    from instantsfm_tpu_torch.solve import schur_wchain as k1
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = torch.device(payload["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    out = dict(rank=rank, world=world, backend=dist.get_backend(),
+               device=str(device), local_rank=os.environ.get("LOCAL_RANK"),
+               isfm_env=any(k.startswith("ISFM_") for k in os.environ),
+               again=multihost.initialize(device=device.type))
+    n = payload["pairs"]
+    mine = multihost.local_pair_slice(n)
+    out["mine"] = mine
+    out["gathered"] = multihost.gather_pair_results(
+        mine, (mine[:, None] * 10 + np.arange(3)).astype(np.int64), n,
+        fill=-1)
+    for kind, (params, obs, steps) in payload["lm"].items():
+        params, obs = to_device(params, device), to_device(obs, device)
+        problem, kernel, cfg = lm_problem(kind)
+        if steps:
+            pp, po, meta = sharded.partition_points(params, obs, world)
+            lp, lo = sharded.rank_slice(pp, po, rank, meta.T_pad, meta.O_pad)
+            step = sharded.make_pointlocal_lm_step(problem, kernel, cfg,
+                                                   device=device)
+            state = lm_state0(lp, cfg)
+            for _ in range(steps):
+                state = step(state, lo)
+            pts = multihost.all_gather_rows(state.params.pts)
+            out[f"{kind}_pointlocal"] = dict(
+                cost=float(state.cost), cam=_np(state.params.cam),
+                pts=sharded.unpartition_points(pts, meta))
+        k1.schur_wchain.launches = 0
+        cam, pts, hist = sharded.optimize_sharded(problem, kernel, cfg,
+                                                  params, obs, device=device)
+        out[f"{kind}_sharded"] = dict(cam=_np(cam), pts=_np(pts),
+                                      history=hist,
+                                      k1_launches=k1.schur_wchain.launches)
+    if payload.get("ring_db"):
+        out["replicated"] = replicated_stages(payload["ring_db"], device,
+                                              offset=rank)
+    if payload.get("gs"):
+        g = payload["gs"]
+        _, pool, views, _, _ = gs_shard_grads(
+            g["scene"], world, g["sh_degree"], g["tile_capacity"], device)
+        G = pool.means.shape[0]
+        sp = gd.shard_splats(gd.pad_splats(pool, world), rank, world)
+        for f in FLOAT_FIELDS:
+            getattr(sp, f).requires_grad_(True)
+        offset = torch.zeros((sp.means.shape[0], 2), device=device,
+                             requires_grad=True)
+        batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
+                 "K": torch.stack([v["K"] for v in views]),
+                 "image": views[rank]["image"][None]}
+        H, W = views[0]["image"].shape[:2]
+        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
+        objective, loss, _, _, _ = gd.distributed_loss(
+            sp, offset, batch, W, H, g["sh_degree"],
+            tile_capacity=g["tile_capacity"])
+        objective.backward()
+        grads = {f: _np(gd.gather_rows(getattr(sp, f).grad)[:G])
+                 for f in FLOAT_FIELDS}
+        grads["offset"] = _np(gd.gather_rows(offset.grad)[:G])
+        out["gs"] = dict(loss=float(loss), grads=grads,
+                         k2_launches=k23.composite_fwd.launches,
+                         k3_launches=k23.composite_bwd.launches)
+    return out
+
+
 SCENARIOS = {"lm": scenario_lm, "multihost": scenario_multihost,
-             "gs": scenario_gs}
+             "gs": scenario_gs, "world": scenario_world}
 
 
 def _worker(scenario, tmp):
@@ -272,11 +455,14 @@ def _worker(scenario, tmp):
     # which pulls in TensorFlow where installed; the JSONL log is enough
     sys.modules["torch.utils.tensorboard"] = None
     from instantsfm_tpu_torch.parallel import multihost
-    if not multihost.initialize(device="cpu",
-                                timeout_s=COLLECTIVE_TIMEOUT_S):
-        raise RuntimeError("no process group: ISFM_* is not set")
     with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
         payload = pickle.load(f)
+    device = payload.get("device", "cpu") if isinstance(payload, dict) \
+        else "cpu"
+    if not multihost.initialize(device=device,
+                                timeout_s=COLLECTIVE_TIMEOUT_S):
+        raise RuntimeError("no process group: neither ISFM_* nor "
+                           "torchrun's variables are set")
     result = SCENARIOS[scenario](payload, tmp)
     with open(os.path.join(tmp, f"result{multihost.process_index()}.pkl"),
               "wb") as f:
