@@ -3090,61 +3090,84 @@ def dist_gp(device, gt, gp_rec):
     return rec, checks
 
 
-def dist_gs(device, root, result="dist", batch=DIST_GS_BATCH, rank=0,
-            world=1):
-    """The gaussian-sharded 3DGS loss and its gradients on the GS phase's
-    scene (``batch`` views, the initial scales perturbed per axis) over the
-    default group's ``world`` ranks, gathered, against this card's
-    single-device loss and gradients (the Runner's, one device); then one
-    distributed train step, whose K2 and K3 launches are counted; K2/K3
-    held against their plain versions on the step's first view of this
-    rank.  Returns (record, checks)."""
+def gs_shard_check(runner, rank=0, world=1, seed=SEED):
+    """The gaussian-sharded 3DGS loss and its gradients against one
+    device's, on ``runner``'s pool and first training batch (``world``
+    divides the batch).  The pool's initial scales are perturbed per axis
+    (isotropic gaussians' quaternion gradients are float noise, which no
+    bar can hold); the Runner's loss averaged over the views and its
+    gradients are taken on this device, then the distributed loss over the
+    default group's ``world`` ranks, this rank compositing its share of
+    the views, and its gathered gradients.  Returns a dict: ``pool``,
+    ``views``, ``batch`` (this rank's), ``loss_single``, ``loss_dist``,
+    the gradients ``grads_single`` and ``grads_dist`` by field and
+    "offset", ``grad_rel`` (each field's largest error over its largest
+    gradient) and the K2/K3 launches of the distributed loss."""
     from instantsfm_tpu_torch.gs import distributed as gd
 
-    runner = Runner(gs_main_cfg(root, result, batch_size=batch),
-                    log=lambda *a: None, device=device)
-    views = runner._views(np.random.default_rng(SEED))
-    sh_degree = 3
+    cfg = runner.cfg
+    views = runner._views(np.random.default_rng(seed))
     pool = runner.splats
     G = pool.means.shape[0]
     with torch.no_grad():
-        # anisotropic scales: the initial gaussians are isotropic, so their
-        # quaternion gradients would be float noise, which no bar can hold
         pool.scales.add_(0.3 * torch.randn(
-            pool.scales.shape, generator=torch.Generator().manual_seed(SEED)
+            pool.scales.shape, generator=torch.Generator().manual_seed(seed)
         ).to(pool.scales.device))
     offset = torch.zeros((G, 2), device=pool.means.device,
                          requires_grad=True)
-    loss1 = torch.stack([runner._loss(pool, v, offset, sh_degree)[0]
+    loss1 = torch.stack([runner._loss(pool, v, offset, cfg.sh_degree)[0]
                          for v in views]).mean()
     loss1.backward()
     g1 = {f: getattr(pool, f).grad.clone() for f in gs_splats.FLOAT_FIELDS}
     g1["offset"] = offset.grad.clone()
 
+    b = len(views) // world
+    batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
+             "K": torch.stack([v["K"] for v in views]),
+             "image": torch.stack([v["image"]
+                                   for v in views[rank * b:(rank + 1) * b]])}
+    sp = gd.shard_splats(gd.pad_splats(pool, world), rank, world)
+    for f in gs_splats.FLOAT_FIELDS:
+        getattr(sp, f).requires_grad_(True)
+    offset2 = torch.zeros((sp.means.shape[0], 2), device=sp.means.device,
+                          requires_grad=True)
+    H, W = views[0]["image"].shape[:2]
+    k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
+    objective, loss2, _, _, _ = gd.distributed_loss(
+        sp, offset2, batch, W, H, cfg.sh_degree,
+        tiles_per_gauss=cfg.tiles_per_gauss, tile_capacity=cfg.tile_capacity)
+    objective.backward()
+    g2 = {f: gd.gather_rows(getattr(sp, f).grad)[:G]
+          for f in gs_splats.FLOAT_FIELDS}
+    g2["offset"] = gd.gather_rows(offset2.grad)[:G]
+    return dict(pool=pool, views=views, batch=batch, loss_single=loss1.item(),
+                loss_dist=loss2.item(), grads_single=g1, grads_dist=g2,
+                grad_rel={f: (g2[f] - g1[f]).abs().max().item()
+                          / max(g1[f].abs().max().item(), 1e-30) for f in g1},
+                k2_launches=k23.composite_fwd.launches - k2n,
+                k3_launches=k23.composite_bwd.launches - k3n)
+
+
+def dist_gs(device, root, result="dist", batch=DIST_GS_BATCH, rank=0,
+            world=1):
+    """``gs_shard_check`` on the GS phase's scene (``batch`` views) over
+    the default group's ``world`` ranks, against this card; then one
+    distributed train step from the same pool, whose K2 and K3 launches
+    are counted and timed; K2/K3 held against their plain versions on the
+    step's first view of this rank.  Returns (record, checks)."""
+    from instantsfm_tpu_torch.gs import distributed as gd
+
+    runner = Runner(gs_main_cfg(root, result, batch_size=batch),
+                    log=lambda *a: None, device=device)
+    chk = gs_shard_check(runner, rank, world)
+    pool, mine, sh_degree = chk["pool"], chk["batch"], runner.cfg.sh_degree
     b = batch // world
-    mine = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
-            "K": torch.stack([v["K"] for v in views]),
-            "image": torch.stack([v["image"]
-                                  for v in views[rank * b:(rank + 1) * b]])}
 
     def shard():
         sp = gd.shard_splats(gd.pad_splats(pool, world), rank, world)
         for f in gs_splats.FLOAT_FIELDS:
             getattr(sp, f).requires_grad_(True)
         return sp
-
-    sp = shard()
-    offset2 = torch.zeros((sp.means.shape[0], 2), device=sp.means.device,
-                          requires_grad=True)
-    objective, loss2, _, _, _ = gd.distributed_loss(
-        sp, offset2, mine, GS_W, GS_H, sh_degree, tiles_per_gauss=16,
-        tile_capacity=512)
-    objective.backward()
-    g2 = {f: gd.gather_rows(getattr(sp, f).grad)[:G]
-          for f in gs_splats.FLOAT_FIELDS}
-    g2["offset"] = gd.gather_rows(offset2.grad)[:G]
-    grad_rel = {f: (g2[f] - g1[f]).abs().max().item()
-                / max(g1[f].abs().max().item(), 1e-30) for f in g1}
 
     kept = []
     composite = gs_raster.composite.composite_tiles
@@ -3172,9 +3195,11 @@ def dist_gs(device, root, result="dist", batch=DIST_GS_BATCH, rank=0,
     k2n, k3n = k23.composite_fwd.launches, k23.composite_bwd.launches
     k2_rec, k3_rec = k23_case(f"dist_rank{rank}_view0", *kept[0], reps=0,
                               allow_ties=True)
-    rec = dict(views=batch, views_per_rank=b, world=world, pool=G,
-               loss_single=loss1.item(), loss_dist=loss2.item(),
-               loss_step=loss3.item(), grad_max_rel_err=grad_rel,
+    grad_rel = chk["grad_rel"]
+    rec = dict(views=batch, views_per_rank=b, world=world,
+               pool=pool.means.shape[0], loss_single=chk["loss_single"],
+               loss_dist=chk["loss_dist"], loss_step=loss3.item(),
+               grad_max_rel_err=grad_rel,
                step_ms=step_ms, k2_launches=k2n, k3_launches=k3n,
                k2=k2_rec, k3=k3_rec, seen=int(seen.sum()))
     checks = {

@@ -21,9 +21,9 @@ process's ``optimize_auto`` (the bars above), ``gather_pair_results`` of 11
 pairs, the replicated stages (view-graph calibration, rotation averaging)
 with each rank's solves moved, which must leave rank 0's (one process's)
 result on every rank, and the gaussian-sharded 3DGS loss and gradients of
-4 views against one process's (float32: loss within 1e-5, gradients
-within 1e-4 of each field's largest, as
-``tests/test_torch_gs_distributed.py``).
+4 views against one process's (float32: loss within 1e-5, gradients within
+1e-4 of each field's largest) and against JAX's ``make_distributed_loss``
+on 4 virtual devices (loss and gradients within 1e-5).
 """
 
 import dataclasses
@@ -45,7 +45,7 @@ from tests.synthetic import make_scene
 from tests.test_block_lm import _ba_setup
 from tests.test_sharded import _gp_setup
 from tests.torch_cpu import lean_cpu  # noqa: F401  (module fixture)
-from tests.torch_dist import gs_shard_grads, lm_problem, lm_state0, run_group
+from tests.torch_dist import lm_problem, lm_state0, run_group
 
 STEPS = 3
 WORLD4, PAIRS4 = 4, 11
@@ -358,16 +358,55 @@ def test_replicated_stages_take_rank0_result(group4, ring_db):
             np.testing.assert_array_equal(out["replicated"][k], v, err_msg=k)
 
 
-def test_distributed_gs_world4_matches_one_process(group4, gs_scene):
+def test_distributed_gs_world4_matches_one_process(group4):
     """The gaussian-sharded 3DGS loss of 4 views (one a rank after the
-    all-to-all) and its gathered gradients against one process's."""
-    _, _, _, loss, grads = gs_shard_grads(gs_scene, WORLD4, 1, 128, "cpu")
+    all-to-all) and its gathered gradients against one process's
+    (``chip_smoke.gs_shard_check``, each rank's own single-device loss of
+    the 4 views): the same loss and gradients on every rank."""
+    want = group4[0]["gs"]
     for out in group4:
-        assert abs(out["gs"]["loss"] - loss) <= 1e-5 * loss
-    for f, g in grads.items():
-        g = g.numpy()
-        err = np.abs(group4[0]["gs"]["grads"][f] - g).max()
-        assert err <= 1e-4 * max(np.abs(g).max(), 1e-30), f
+        got = out["gs"]
+        assert abs(got["loss_dist"] - got["loss_single"]) \
+            <= 1e-5 * got["loss_single"]
+        assert max(got["grad_rel"].values()) <= 1e-4, got["grad_rel"]
+        assert got["loss_single"] == want["loss_single"]
+        for f, g in got["grads_dist"].items():
+            np.testing.assert_array_equal(g, want["grads_dist"][f],
+                                          err_msg=f)
+
+
+def test_distributed_gs_world4_matches_jax(group4):
+    """The four ranks' gaussian-sharded loss and gathered gradients against
+    JAX's ``make_distributed_loss`` on a mesh of 4 of the conftest's
+    virtual devices, from rank 0's pool and views (the same four-way split
+    of the pool and one view a device): loss and gradients within 1e-5
+    (the gradients relative to each field's largest), as
+    ``tests/test_torch_gs_distributed.py`` holds them at world 2."""
+    from instantsfm_tpu.gs import distributed as jdist
+    from instantsfm_tpu.gs import splats as jsplats
+
+    got, views = group4[0]["gs"], group4[0]["gs"]["views"]
+    pool = jsplats.Splats(**{k: jnp.asarray(v)
+                             for k, v in got["pool"].items()})
+    G = pool.means.shape[0]
+    mesh = jdist.make_mesh(jax.devices()[:WORLD4])
+    pool = jdist.shard_splats(mesh, jdist.pad_splats(pool, WORLD4))
+    H, W = views["image"].shape[1:3]
+    loss_fn = jdist.make_distributed_loss(mesh, W, H, 1, tile_capacity=128)
+    offset = jnp.zeros((pool.means.shape[0], 2), jnp.float32)
+    (loss, _), (g_params, g_offset) = jax.jit(
+        jax.value_and_grad(loss_fn, argnums=(0, 2), has_aux=True))(
+        jsplats.float_params(pool), pool.alive, offset,
+        jnp.asarray(views["image"]), jnp.asarray(views["camtoworld"]),
+        jnp.asarray(views["K"]))
+    want = {k: np.asarray(v)[:G] for k, v in g_params.items()}
+    want["offset"] = np.asarray(g_offset)[:G]
+    for out in group4:
+        assert abs(out["gs"]["loss_dist"] - float(loss)) \
+            <= 1e-5 * float(loss)
+    for f, g in want.items():
+        err = np.abs(got["grads_dist"][f] - g).max()
+        assert err <= 1e-5 * max(np.abs(g).max(), 1e-30), (f, err)
 
 
 def test_lm_step_under_a_group_needs_a_named_solver(problems):

@@ -9,8 +9,8 @@ environment, or through torchrun's (``MASTER_ADDR``, ``MASTER_PORT``,
 (``parallel.multihost.initialize``, 60 s timeout on every collective;
 gloo, or NCCL with one card a rank where ``payload["device"]`` is
 ``"cuda"``), runs ``SCENARIOS[scenario](payload, tmp)`` and pickles its
-result.  This module imports torch and the port only, never JAX, so a
-worker starts in about two seconds.  Workers run torch on one thread: the
+result.  This module imports torch, the port and ``chip_smoke`` only,
+never JAX, so a worker starts in about two seconds.  Workers run torch on one thread: the
 ops are small, and beside the suite's other workers torch's thread team
 spins (``tests/torch_cpu.py``).
 """
@@ -286,36 +286,6 @@ def to_device(x, device):
     return x
 
 
-def gs_shard_grads(scene, views, sh_degree, tile_capacity, device):
-    """The distributed-3DGS check's single-device side, on ``device``:
-    a Runner's pool on ``scene`` (its initial scales perturbed per axis:
-    isotropic gaussians' quaternion gradients are float noise, whose sum
-    order no bar can hold) and its first ``views`` training views, with
-    the Runner's loss averaged over them and its gradients.  Returns
-    (runner, pool, views, loss, gradients by field and "offset")."""
-    from instantsfm_tpu_torch.gs.splats import FLOAT_FIELDS
-    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
-    runner = Runner(GSConfig(
-        data_dir=scene, result_dir=os.path.join(scene, f"out_{os.getpid()}"),
-        batch_size=views, sh_degree=sh_degree, tile_capacity=tile_capacity,
-        eval_steps=(), save_steps=(), tb_every=0),
-        log=lambda *a: None, device=device)
-    batch = runner._views(np.random.default_rng(0))
-    pool = runner.splats
-    with torch.no_grad():
-        pool.scales.add_(0.3 * torch.randn(
-            pool.scales.shape, generator=torch.Generator().manual_seed(0)
-        ).to(pool.scales.device))
-    offset = torch.zeros((pool.means.shape[0], 2), device=pool.means.device,
-                         requires_grad=True)
-    loss = torch.stack([runner._loss(pool, v, offset, sh_degree)[0]
-                        for v in batch]).mean()
-    loss.backward()
-    grads = {f: getattr(pool, f).grad for f in FLOAT_FIELDS}
-    grads["offset"] = offset.grad
-    return runner, pool, batch, loss.item(), grads
-
-
 def replicated_stages(db, device, offset=0):
     """The mapper's stages from view-graph calibration to rotation
     averaging (the ones every rank of a group runs whole) on the database
@@ -363,6 +333,31 @@ def replicated_stages(db, device, offset=0):
                 registered=imgs.registered.copy())
 
 
+def gs_world(g, rank, world, device):
+    """``chip_smoke.gs_shard_check`` on the scene ``g["scene"]``: a batch
+    of one view a rank, the loss and gradients on one device and
+    gaussian-sharded over the group, as numpy; rank 0 adds the pool and
+    the views it started from."""
+    import chip_smoke
+    from instantsfm_tpu_torch.gs.trainer import GSConfig, Runner
+    runner = Runner(GSConfig(
+        data_dir=g["scene"],
+        result_dir=os.path.join(g["scene"], f"out_{os.getpid()}"),
+        batch_size=world, sh_degree=g["sh_degree"],
+        tile_capacity=g["tile_capacity"], eval_steps=(), save_steps=(),
+        tb_every=0), log=lambda *a: None, device=device)
+    chk = chip_smoke.gs_shard_check(runner, rank, world, seed=0)
+    out = {k: chk[k] for k in ("loss_single", "loss_dist", "grad_rel",
+                               "k2_launches", "k3_launches")}
+    out["grads_single"] = _np(chk["grads_single"])
+    out["grads_dist"] = _np(chk["grads_dist"])
+    if rank == 0:
+        out["pool"] = _np(vars(chk["pool"]))
+        out["views"] = {k: _np(torch.stack([v[k] for v in chk["views"]]))
+                        for k in ("camtoworld", "K", "image")}
+    return out
+
+
 def scenario_world(payload, tmp):
     """At this group's size: how ``initialize`` formed the group,
     ``gather_pair_results`` of ``payload["pairs"]`` strided pairs, per LM
@@ -370,13 +365,10 @@ def scenario_world(payload, tmp):
     ``optimize_sharded``, with ``payload["ring_db"]`` the replicated stages
     with each rank's solves moved by its rank (``replicated_stages``), and,
     with ``payload["gs"]``, the gaussian-sharded 3DGS loss and gradients of
-    one batch with one view a rank (K2/K3 launches counted), on
-    ``payload["device"]``."""
+    one batch with one view a rank against one device's (``gs_world``),
+    on ``payload["device"]``."""
     import torch.distributed as dist
 
-    from instantsfm_tpu_torch.gs import composite as k23
-    from instantsfm_tpu_torch.gs import distributed as gd
-    from instantsfm_tpu_torch.gs.splats import FLOAT_FIELDS
     from instantsfm_tpu_torch.parallel import multihost, sharded
     from instantsfm_tpu_torch.solve import schur_wchain as k1
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -418,30 +410,7 @@ def scenario_world(payload, tmp):
         out["replicated"] = replicated_stages(payload["ring_db"], device,
                                               offset=rank)
     if payload.get("gs"):
-        g = payload["gs"]
-        _, pool, views, _, _ = gs_shard_grads(
-            g["scene"], world, g["sh_degree"], g["tile_capacity"], device)
-        G = pool.means.shape[0]
-        sp = gd.shard_splats(gd.pad_splats(pool, world), rank, world)
-        for f in FLOAT_FIELDS:
-            getattr(sp, f).requires_grad_(True)
-        offset = torch.zeros((sp.means.shape[0], 2), device=device,
-                             requires_grad=True)
-        batch = {"camtoworld": torch.stack([v["camtoworld"] for v in views]),
-                 "K": torch.stack([v["K"] for v in views]),
-                 "image": views[rank]["image"][None]}
-        H, W = views[0]["image"].shape[:2]
-        k23.composite_fwd.launches = k23.composite_bwd.launches = 0
-        objective, loss, _, _, _ = gd.distributed_loss(
-            sp, offset, batch, W, H, g["sh_degree"],
-            tile_capacity=g["tile_capacity"])
-        objective.backward()
-        grads = {f: _np(gd.gather_rows(getattr(sp, f).grad)[:G])
-                 for f in FLOAT_FIELDS}
-        grads["offset"] = _np(gd.gather_rows(offset.grad)[:G])
-        out["gs"] = dict(loss=float(loss), grads=grads,
-                         k2_launches=k23.composite_fwd.launches,
-                         k3_launches=k23.composite_bwd.launches)
+        out["gs"] = gs_world(payload["gs"], rank, world, device)
     return out
 
 

@@ -4,13 +4,13 @@ against one card in the same run.
 Started by torchrun from the repository root, one process per card:
 
     torchrun --standalone --nproc_per_node=4 tools/multicard_torch.py \\
-        [--images 2000|500|200] [--feat-views 200]
+        [--images 2000|500|200]
 
 Every rank builds K1 and K2/K3 into the checkout's build directory at the
 same time (seconds per rank).  Rank 0 writes the ring database of
 ``--images`` (2,000: ``chip_smoke.SCALE_2K``, ``bench_e2e.py``'s config 4;
 500: ``PERF.md`` §4's 500-image config; 200: the SFM phase's scene), rank 1
-renders ``--feat-views`` views of the FEAT phase's scene at 640x480, rank 2
+renders the FEAT phase's 200 views at 640x480, rank 2
 writes the GS phase's 3DGS scene (100k points, 24 views at 800x608), and
 then, over the default NCCL group:
 
@@ -70,7 +70,6 @@ from instantsfm_tpu_torch.solve import block_lm
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.utils import bench, build, debug
 
-DEVICE = "cuda"
 SCALES = {2000: cs.SCALE_2K,
           500: dict(num_cams=500, num_pts=1_000_000, vis_angle=0.05,
                     window=12, scene_scale=1.0, max_matches_per_pair=0),
@@ -91,30 +90,22 @@ LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
                "ISFM_NUM_PROCESSES", "ISFM_PROCESS_ID", "OMP_NUM_THREADS")
 
 
-def sync():
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
-
-
 def reset_peak():
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def peak_device_gb():
-    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" \
-        else None
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 def quiet(*args, **kwargs):
     pass
 
 
-
 # ------------------------------------------------------------ inputs
 
-def prepare(job, work, images, feat_views):
+def prepare(job, work, images):
     """Write one path's input under ``work``; returns its record."""
     t0 = time.perf_counter()
     src = os.path.join(work, f"{job}_src")
@@ -126,13 +117,13 @@ def prepare(job, work, images, feat_views):
         cs.write_ring_gt_model(os.path.join(src, "sparse_gt"), gt)
         rec = dict(scene=SCALES[images], pairs=pairs, matches=matches)
     elif job == "feat":
-        gt = cs.render_plane_scene(src, DEVICE, n_cams=feat_views,
+        gt = cs.render_plane_scene(src, "cuda", n_cams=cs.FEAT_VIEWS,
                                    W=cs.FEAT_W, H=cs.FEAT_H,
                                    f=cs.FEAT_W * cs.PIX_F / cs.PIX_W)
         np.savez(os.path.join(src, "gt.npz"), **gt)
-        rec = dict(views=feat_views, width=cs.FEAT_W, height=cs.FEAT_H)
+        rec = dict(views=cs.FEAT_VIEWS, width=cs.FEAT_W, height=cs.FEAT_H)
     else:
-        cs.make_gs_scene(src, DEVICE, cs.GS_POINTS, cs.GS_VIEWS, cs.GS_W,
+        cs.make_gs_scene(src, "cuda", cs.GS_POINTS, cs.GS_VIEWS, cs.GS_W,
                          cs.GS_H)
         rec = dict(points=cs.GS_POINTS, views=cs.GS_VIEWS, width=cs.GS_W,
                    height=cs.GS_H)
@@ -183,9 +174,9 @@ def sfm_cli(data_path):
     block_lm.schur_wchain, mapper.solve_global_mapper = k1_spy, solve_spy
     t0 = time.perf_counter()
     try:
-        rc = cli_sfm.main(["--data_path", data_path, "--device", DEVICE,
+        rc = cli_sfm.main(["--data_path", data_path, "--device", "cuda",
                            "--f32"])
-        sync()
+        torch.cuda.synchronize()
     finally:
         block_lm.schur_wchain, mapper.solve_global_mapper = launch, solve
     total_s = time.perf_counter() - t0
@@ -228,7 +219,7 @@ def scale_result(data, gt):
     are not counted)."""
     rec, images, first_input = sfm_cli(data)
     score_ring(rec, images, gt)
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda", torch.cuda.current_device())
     rec["k1"] = {stage: cs.k1_sfm_check(stage, args, dev)
                  for stage, args in first_input.items()}
     return rec
@@ -238,7 +229,7 @@ def scale_eval(rec, data, work):
     t0 = time.perf_counter()
     rec["eval"] = benchmark.evaluate_scene(
         os.path.join(work, "scale_src", "sparse_gt"),
-        os.path.join(data, "sparse"), device=DEVICE)
+        os.path.join(data, "sparse"), device="cuda")
     rec["eval_s"] = time.perf_counter() - t0
 
 
@@ -255,8 +246,8 @@ def feat_cli(data_path):
     handler.generate_database = keep
     t0 = time.perf_counter()
     try:
-        rc = cli_feat.main(["--data_path", data_path, "--device", DEVICE])
-        sync()
+        rc = cli_feat.main(["--data_path", data_path, "--device", "cuda"])
+        torch.cuda.synchronize()
     finally:
         handler.generate_database = generate
     return dict(rc=rc, seconds=time.perf_counter() - t0,
@@ -291,14 +282,14 @@ def gs_cli(root, result_dir, distributed):
 
     argv = ["--data_path", root, "--result_dir", result_dir, "--max_steps",
             str(cs.GS_STEPS), "--batch_size", str(GS_BATCH), "--device",
-            DEVICE] + (["--distributed"] if distributed else [])
+            "cuda"] + (["--distributed"] if distributed else [])
     reset_peak()
     k23.composite_fwd.launches = k23.composite_bwd.launches = 0
     cli_gs.Runner = runner
     t0 = time.perf_counter()
     try:
         rc = cli_gs.main(argv)
-        sync()
+        torch.cuda.synchronize()
     finally:
         cli_gs.Runner = runner_cls
     seconds = time.perf_counter() - t0
@@ -363,11 +354,10 @@ def start_reference(job, work, args, log_path):
     """``--one-card job`` in a fresh process on this rank's card, without
     torchrun's variables."""
     env = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
-    if DEVICE == "cuda":
-        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-        local = torch.cuda.current_device()
-        env["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[local] if visible
-                                       else str(local))
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    local = torch.cuda.current_device()
+    env["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[local] if visible
+                                   else str(local))
     out = os.path.join(work, f"ref_{job}.json")
     cmd = [sys.executable, os.path.abspath(sys.argv[0]), "--one-card", job,
            "--work", work, "--images", str(args.images), "--out", out]
@@ -392,30 +382,28 @@ def host_gather(obj):
 
 def worker(args):
     t0 = time.perf_counter()
-    if not multihost.initialize(device=DEVICE):
+    if not multihost.initialize(device="cuda"):
         raise SystemExit("multicard_torch: start it with torchrun, two or "
                          "more processes")
     rank, world = multihost.process_index(), multihost.process_count()
+    idx = torch.cuda.current_device()
     rec = dict(rank=rank, world=world,
                local_rank=os.environ.get("LOCAL_RANK"),
-               init_s=time.perf_counter() - t0)
-    if DEVICE == "cuda":
-        idx = torch.cuda.current_device()
-        rec.update(device=f"cuda:{idx}",
-                   name=torch.cuda.get_device_name(idx))
-        t0 = time.perf_counter()
-        build.load("schur_wchain")
-        build.load("composite_tiles")
-        rec["build_s"] = time.perf_counter() - t0
-        rec["built"] = {n: dict(seconds=i["seconds"])
-                        for n, i in build.BUILD_INFO.items()}
-    work = host_gather(args.work or (tempfile.mkdtemp(prefix="multicard_")
-                                     if rank == 0 else None))[0]
-    os.makedirs(work, exist_ok=True)
-    prep = {job: prepare(job, work, args.images, args.feat_views)
+               init_s=time.perf_counter() - t0, device=f"cuda:{idx}",
+               name=torch.cuda.get_device_name(idx))
+    t0 = time.perf_counter()
+    build.load("schur_wchain")
+    build.load("composite_tiles")
+    rec["build_s"] = time.perf_counter() - t0
+    rec["built"] = {n: dict(seconds=i["seconds"])
+                    for n, i in build.BUILD_INFO.items()}
+    work = host_gather(tempfile.mkdtemp(prefix="multicard_")
+                       if rank == 0 else None)[0]
+    prep = {job: prepare(job, work, args.images)
             for j, job in enumerate(JOBS) if j % world == rank}
     prep = {k: v for p in host_gather(prep) for k, v in p.items()}
-    cs.first_jacfwd(torch.device(DEVICE))
+    device = torch.device("cuda", idx)
+    cs.first_jacfwd(device)
 
     # FEAT: cli.feat, then cli.sfm on its database
     data = os.path.join(work, "feat4")
@@ -432,7 +420,7 @@ def worker(args):
     # GS: one step against one card, then cli.gs --distributed
     root = os.path.join(work, "gs_src")
     rec["gs_step"], rec["gs_step_checks"] = cs.dist_gs(
-        torch.device(DEVICE), root, os.path.join(work, f"gs_one{rank}"),
+        device, root, os.path.join(work, f"gs_one{rank}"),
         GS_BATCH, rank, world)
     multihost.barrier()
     rec["gs"] = gs_cli(root, os.path.join(work, "gs4"), distributed=True)
@@ -455,8 +443,7 @@ def worker(args):
     print("RANK " + json.dumps(rec), flush=True)
 
     # the one-card references, one a card, at once
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     refs = {job: start_reference(job, work, args,
                                  os.path.join(out, f"ref_{job}.log"))
             for j, job in enumerate(JOBS) if j % world == rank}
@@ -465,8 +452,7 @@ def worker(args):
     if rank != 0:
         return 0
     summary = compare(ranks, refs, prep, work, args)
-    if not args.work:
-        shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
     with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(summary, f)
     print(json.dumps(summary), flush=True)
@@ -478,10 +464,8 @@ def compare(ranks, refs, prep, work, args):
     the bars and against the one-card references (``refs``)."""
     n = SCALES[args.images]["num_cams"]
     s4, s1 = ranks[0]["scale"], refs["scale"]
-    checks = {}
-    if DEVICE == "cuda":
-        checks["every rank on a card of its own"] = \
-            len({r["device"] for r in ranks}) == len(ranks)
+    checks = {"every rank on a card of its own":
+              len({r["device"] for r in ranks}) == len(ranks)}
     for tag, s in (("four cards", s4), ("one card", s1)):
         checks.update({
             f"SCALE {tag}: cli.sfm exits 0": s["rc"] == 0,
@@ -543,8 +527,8 @@ def compare(ranks, refs, prep, work, args):
         abs(ranks[0]["gs"]["psnr"] - g1["psnr"]) <= GS_PSNR_DB
     failed = [k for k, ok in checks.items() if not ok]
     return {"multicard": dict(
-        world=len(ranks), cards=bench.card_line() if DEVICE == "cuda"
-        else None, images=args.images, inputs=prep,
+        world=len(ranks), cards=bench.card_line(), images=args.images,
+        inputs=prep,
         ranks=[{k: r.get(k) for k in ("rank", "device", "name", "init_s",
                                       "build_s", "built",
                                       "peak_host_rss_gb")}
@@ -567,22 +551,19 @@ def compare(ranks, refs, prep, work, args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images", type=int, default=2000, choices=sorted(SCALES))
-    ap.add_argument("--feat-views", type=int, default=cs.FEAT_VIEWS)
-    ap.add_argument("--work", default=None,
-                    help="directory for the inputs and models, kept "
-                         "(default: a new temporary directory, removed at "
-                         "the end)")
+    # a one-card reference's process: its path, the group's work directory
+    # and where it writes its record
     ap.add_argument("--one-card", choices=JOBS, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if DEVICE == "cuda" and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("multicard_torch: no CUDA device available", file=sys.stderr)
         return 1
-    if DEVICE == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.one_card:
-        cs.first_jacfwd(torch.device(DEVICE))
+        cs.first_jacfwd(torch.device("cuda"))
         rec = one_card(args.one_card, args.work, args.images)
         with open(args.out, "w") as f:
             json.dump(rec, f)
