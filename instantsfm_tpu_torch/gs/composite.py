@@ -156,6 +156,29 @@ def cull_rows(attrs, ntx: int):
              | (box[..., 3] < y0) | (box[..., 2] > y0 + 1.0))
 
 
+def entered(logt):
+    """[n, K/CHUNK] bool: the chunks K2's walk entered."""
+    return logt.amax(dim=2) > 0.5 * NOT_RUN
+
+
+def pair_counts(attrs, logt, ntx: int, batch: int = 256):
+    """What the reference compositing does on these inputs, read from the
+    forward's log T: the chunks its walk entered, the (gaussian, pixel)
+    pairs in them and the live pairs among those (alpha past the
+    thresholds).  Only measurements call it (``utils/roofline.py``)."""
+    t_idx, c_idx = entered(logt).nonzero(as_tuple=True)
+    px, py = pixel_coords(attrs.shape[0], ntx, attrs.device)
+    rows = torch.arange(CHUNK, device=attrs.device)
+    live = 0
+    for lo in range(0, len(t_idx), batch):
+        t, c = t_idx[lo:lo + batch], c_idx[lo:lo + batch]
+        r = c[:, None] * CHUNK + rows[None, :]
+        live += int((alpha_terms(attrs[t[:, None], r], px[t], py[t])[0]
+                     > 0).sum())
+    return dict(chunks_entered=len(t_idx), pairs=len(t_idx) * CHUNK * P,
+                live_pairs=live)
+
+
 def _exclusive_cumsum(x):
     """Exclusive prefix sum along dim 1."""
     return torch.cat([torch.zeros_like(x[:, :1]),

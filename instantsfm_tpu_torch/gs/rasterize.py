@@ -16,6 +16,11 @@ Counterpart of ``instantsfm_tpu/gs/rasterize.py`` (its default route):
 
 Densification statistics come from the gradient w.r.t. an explicit
 screen-space offset probe (``means2d_offset``), gsplat's ``means2d.grad``.
+
+Each part runs under a ``record_function`` scope (``gs:projection``,
+``gs:sh``, ``gs:tile_sort``, ``gs:gather``, ``gs:composite``), by which a
+profile of a step assigns device time to the parts
+``utils/roofline.py::gs_step_cost`` counts.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from instantsfm_tpu_torch.gs import composite, projection, sh as sh_mod
 
@@ -53,19 +59,21 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
                  eps2d: float = 0.3, means2d_offset=None,
                  camera_model: str = "pinhole") -> Projected2D:
     """EWA projection and SH colour for one view."""
-    proj = projection.project(means, quats, scales, viewmat, Kmat,
-                              width, height, eps2d=eps2d,
-                              camera_model=camera_model)
-    means2d = proj.means2d
-    if means2d_offset is not None:
-        means2d = means2d + means2d_offset
+    with record_function("gs:projection"):
+        proj = projection.project(means, quats, scales, viewmat, Kmat,
+                                  width, height, eps2d=eps2d,
+                                  camera_model=camera_model)
+        means2d = proj.means2d
+        if means2d_offset is not None:
+            means2d = means2d + means2d_offset
 
-    cam_pos = -viewmat[:3, :3].T @ viewmat[:3, 3]
-    dirs = means - cam_pos
-    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
-                              min=1e-8)
-    colors = torch.clamp(sh_mod.eval_sh(sh_degree, sh_coeffs, dirs) + 0.5,
-                         min=0.0)
+    with record_function("gs:sh"):
+        cam_pos = -viewmat[:3, :3].T @ viewmat[:3, 3]
+        dirs = means - cam_pos
+        dirs = dirs / torch.clamp(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+        colors = torch.clamp(
+            sh_mod.eval_sh(sh_degree, sh_coeffs, dirs) + 0.5, min=0.0)
     return Projected2D(means2d=means2d, conics=proj.conics,
                        depths=proj.depths, radii=proj.radii,
                        valid=proj.valid, colors=colors, opac=opacities)
@@ -150,22 +158,26 @@ def tile_attrs(p: Projected2D, width: int, height: int,
     nchunks [n_tiles] int32, ntx).  Differentiable in the packed
     attributes."""
     n_tiles_x = (width + TILE - 1) // TILE
-    tile_gauss, counts = tile_windows(p.means2d, p.radii, p.valid, p.depths,
-                                      width, height, tiles_per_gauss,
-                                      tile_capacity)
-    table = composite.pack_attrs(p.means2d, p.conics, p.colors, p.opac,
-                                 p.depths)
-    # index_select, not table[tile_gauss]: its transpose is index_add_
-    # (atomics), where advanced indexing's sorts the ~10^6 slot indices and
-    # serializes the runs of repeated ones (the sentinel row's above all)
-    attrs = torch.index_select(table, 0, tile_gauss.reshape(-1)).reshape(
-        tile_gauss.shape + (composite.ATTR,))           # [n_tiles, K, ATTR]
-    K_pad = -(-tile_capacity // composite.CHUNK) * composite.CHUNK
-    if K_pad != tile_capacity:
-        attrs = torch.cat([attrs, attrs.new_zeros(
-            (attrs.shape[0], K_pad - tile_capacity, composite.ATTR))], dim=1)
-    nchunks = (-(-torch.clamp(counts, max=tile_capacity)
-                 // composite.CHUNK)).to(torch.int32)
+    with record_function("gs:tile_sort"):
+        tile_gauss, counts = tile_windows(p.means2d, p.radii, p.valid,
+                                          p.depths, width, height,
+                                          tiles_per_gauss, tile_capacity)
+    with record_function("gs:gather"):
+        table = composite.pack_attrs(p.means2d, p.conics, p.colors, p.opac,
+                                     p.depths)
+        # index_select, not table[tile_gauss]: its transpose is index_add_
+        # (atomics), where advanced indexing's sorts the ~10^6 slot indices
+        # and serializes the runs of repeated ones (the sentinel row's
+        # above all)
+        attrs = torch.index_select(table, 0, tile_gauss.reshape(-1)).reshape(
+            tile_gauss.shape + (composite.ATTR,))       # [n_tiles, K, ATTR]
+        K_pad = -(-tile_capacity // composite.CHUNK) * composite.CHUNK
+        if K_pad != tile_capacity:
+            attrs = torch.cat([attrs, attrs.new_zeros(
+                (attrs.shape[0], K_pad - tile_capacity, composite.ATTR))],
+                dim=1)
+        nchunks = (-(-torch.clamp(counts, max=tile_capacity)
+                     // composite.CHUNK)).to(torch.int32)
     return attrs, nchunks, n_tiles_x
 
 
@@ -179,7 +191,8 @@ def rasterize_projected(p: Projected2D, width: int, height: int,
     nty = (height + TILE - 1) // TILE
     attrs, nchunks, _ = tile_attrs(p, width, height, tiles_per_gauss,
                                    tile_capacity)
-    rgb, alpha, dep = composite.composite_tiles(attrs, nchunks, ntx)
+    with record_function("gs:composite"):
+        rgb, alpha, dep = composite.composite_tiles(attrs, nchunks, ntx)
     rgb = rgb.transpose(1, 2).to(dtype)                 # [n_tiles, P, 3]
     T = (1.0 - alpha).to(dtype)
     dep = dep.to(dtype)

@@ -61,11 +61,12 @@ def count_syncs(fn):
 
 def device_breakdown(step, n: int, top: int = 30):
     """``step()`` run ``n`` times under ``torch.profiler``: device self-time
-    by kernel name divided by ``n``, largest first, the device-busy time a
-    step and its idle share of the wall time.  Where ``key_averages()``
-    holds no device time, the steps run again between CUDA events, whose
-    totals (which include the device's idle gaps) stand in, and the record
-    says so.  Returns (record, the profiler, for ``export_chrome_trace``)."""
+    by kernel name divided by ``n``, largest first (``record_function``
+    scopes left out: their device rows are their kernels' spans), the
+    device-busy time a step and its idle share of the wall time.  Where
+    ``key_averages()`` holds no device time, the steps run again between
+    CUDA events, whose totals (which include the device's idle gaps) stand
+    in, and the record says so.  Returns (record, the profiler, for ``export_chrome_trace``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -77,10 +78,14 @@ def device_breakdown(step, n: int, top: int = 30):
             step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # a record_function scope (the step's own, Optimizer.step#...) shows on
+    # the device as the span of its kernels: not device time of its own
+    scopes = {e.name for e in prof.events() if e.is_user_annotation}
     rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
+                   and ev.self_device_time_total > 0
+                   and ev.key not in scopes), reverse=True)
     if rows:
         busy_ms = sum(r[0] for r in rows) / 1e3 / n
         return dict(source="torch.profiler", steps=n, wall_ms_per_step=wall_ms,
@@ -102,6 +107,59 @@ def device_breakdown(step, n: int, top: int = 30):
                 device_ms_per_step=start.elapsed_time(end) / n,
                 device_busy_ms_per_step=None, device_idle_share=None,
                 kernels=[]), prof
+
+
+def time_by_scope(prof, n: int, scopes: dict, by_name: dict = None,
+                  device: bool = True):
+    """Time a step of ``n`` profiled steps, by part: ({part: ms},
+    [(name, ms) of what no part took, largest first]).
+
+    ``scopes`` maps the start of a scope's name (a ``record_function``, or
+    torch's own ``Optimizer.step#``) to its (forward, backward) parts.  An
+    op inside a scope goes to its forward part; an op of the backward goes
+    to the backward part of the scope its forward op ran in (an autograd
+    node carries its forward op's sequence number).  With ``device`` the
+    device kernels are timed, each by the op that launched it, and a kernel
+    whose name holds a key of ``by_name`` goes to that part whatever
+    launched it; without, the ops' own host time is (the profiler of a CPU
+    run)."""
+    def scope(e):
+        for key, parts in scopes.items():
+            if e.name.startswith(key):
+                return parts
+        return None
+
+    seq = {}
+    for e in prof.events():
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            p = e
+            while p is not None and scope(p) is None:
+                p = p.cpu_parent
+            if p is not None:
+                seq[e.sequence_nr] = scope(p)[1]
+
+    def part_of(e):
+        while e is not None:
+            if scope(e) is not None:
+                return scope(e)[0]
+            if (e.name.startswith("autograd::engine::evaluate_function")
+                    and e.sequence_nr in seq):
+                return seq[e.sequence_nr]
+            e = e.cpu_parent
+        return None
+
+    parts, rest = {}, {}
+    for e in prof.events():
+        if device:
+            items = [(k.name, k.duration) for k in e.kernels]
+        else:
+            items = [(e.name, e.self_cpu_time_total)]
+        for name, us in items:
+            part = next((v for k, v in (by_name or {}).items() if k in name),
+                        None) or part_of(e)
+            into, key = (parts, part) if part else (rest, name)
+            into[key] = into.get(key, 0.0) + us / 1e3 / n
+    return parts, sorted(rest.items(), key=lambda kv: -kv[1])
 
 
 def print_breakdown(rec: dict) -> None:

@@ -7,7 +7,17 @@ bit for bit, the quaternions to 1e-12 in float64, float32 within one ulp);
 database as each package's reader reads it back; one ``bench_torch`` LM
 step in float64 matches JAX x64's within ``tests/test_torch_ba.py``'s
 tolerances; ``bench_e2e_torch.run_pipeline`` records a pass on the CPU; and
-every entry point's ``main()`` raises without a card."""
+every entry point's ``main()`` raises without a card.
+
+The 3DGS step's count (``roofline.gs_step_cost``) on ``bench_gs_torch``'s
+step at 1,000 gaussians and 64x48, one step on the CPU through the plain
+versions: each part against a tally made apart (the parameter tensors'
+sizes, ``rasterize.tile_windows``, ``chip_smoke.composite_work``, the
+pixels), the same count at tile capacity 256 and 512 where no tile
+overflows, the SSIM term against torch's FLOP counter on a separable
+depthwise filter that equals ``gs/ssim.py``'s, ``bench_gs.py``'s roofline
+keys on a record built from a fake time, and every part of a profiled step
+assigned (``bench.time_by_scope``, as the trace tool uses it)."""
 
 import importlib
 import os
@@ -22,7 +32,10 @@ import torch
 import bench
 import bench_e2e
 import bench_e2e_torch
+import bench_gs_torch
 import bench_torch
+import chip_smoke
+from tests.torch_cpu import lean_cpu  # noqa: F401  (module fixture)
 from instantsfm_tpu.io.colmap_db import read_colmap_database as jread
 from instantsfm_tpu.math import lie as jlie
 from instantsfm_tpu.solve import block_lm as jbl
@@ -30,7 +43,11 @@ from instantsfm_tpu.solve import robust as jrobust
 from instantsfm_tpu.solve.blocked import bucketize_problem as jbucketize
 from instantsfm_tpu.solve.problems import make_ba_problem as jmake_ba_problem
 from instantsfm_tpu.utils import roofline as jroofline
+from instantsfm_tpu_torch.gs import composite as k23
+from instantsfm_tpu_torch.gs import rasterize as traster
+from instantsfm_tpu_torch.gs import ssim as tssim
 from instantsfm_tpu_torch.io.colmap_db import read_colmap_database as tread
+from instantsfm_tpu_torch.utils import bench as tbench
 from instantsfm_tpu_torch.utils import roofline as troofline
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
@@ -191,3 +208,164 @@ def test_entry_points_raise_without_card(module, monkeypatch):
     mod = importlib.import_module(os.path.basename(module))
     with pytest.raises(RuntimeError, match="CUDA card"):
         mod.main()
+
+
+GS_SMALL = dict(num_gaussians=1000, width=64, height=48, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gs_step():
+    """``bench_gs_torch``'s step at ``GS_SMALL`` after one step."""
+    step = bench_gs_torch.setup(**GS_SMALL)
+    step()
+    return step
+
+
+def _render(step, tile_capacity):
+    """``bench_gs_torch.step_work`` on the step's view at
+    ``tile_capacity``, the tiles' gaussian counts, and K2/K3's inputs and
+    log T."""
+    W, H = GS_SMALL["width"], GS_SMALL["height"]
+    inputs = step.inputs()
+    with torch.no_grad():
+        p = traster.project_view(*inputs, W, H, sh_degree=3)
+        counts = traster.tile_windows(p.means2d, p.radii, p.valid, p.depths,
+                                      W, H, 16, tile_capacity)[1]
+        attrs, nchunks, ntx = traster.tile_attrs(p, W, H, 16, tile_capacity)
+        logt = k23.composite_fwd(attrs, nchunks, ntx)[1]
+    return (bench_gs_torch.step_work(*inputs, W, H, tile_capacity), counts,
+            (attrs, logt, ntx))
+
+
+def test_gs_step_cost_parts_match_a_tally(gs_step):
+    step = gs_step
+    work, counts, (attrs, logt, ntx) = _render(step, 512)
+    assert work == step.work()
+    cost = troofline.gs_step_cost(**work)
+    parts = cost.parts
+    assert tuple(parts) == troofline.GS_PARTS
+    for i in range(3):
+        assert cost[i] == sum(p[i] for p in parts.values())
+    G = step.params["means"].shape[0]
+    assert work["G"] == G
+    sh = step.params["sh0"].numel() + step.params["shN"].numel()
+    floats = sum(p.numel() for p in step.params.values())
+    assert floats == 59 * G                  # 3 + 4 + 3 + 1 + 48 at SH 3
+    assert parts["adam"] == (13 * floats, 2 * floats, 28 * floats)
+    # SH: the coefficients and means read, the colours written; backward
+    # reads the colours' gradient, coefficients and means, writes theirs
+    assert parts["sh_fwd"].hbm_bytes == 4 * (sh + 3 * G + 3 * G)
+    assert parts["sh_bwd"].hbm_bytes == 4 * (3 * G + 2 * sh + 2 * 3 * G)
+    # intersections: every (tile, gaussian) pair tile_windows sorts
+    I = int(counts.sum())
+    assert work["intersections"] == work["kept"] == I > 0
+    assert parts["tile_sort"].hbm_bytes == (17 * G + 40 * I
+                                            + 4 * (attrs.shape[0] + 1))
+    assert parts["gather"].hbm_bytes == 40 * G + 44 * I
+    # K2/K3: the pairs of the entered chunks and the live ones
+    cw = chip_smoke.composite_work(attrs, logt, ntx)
+    assert work["chunks_entered"] == cw["chunks_entered"] > 0
+    assert work["live_pairs"] == cw["live_pairs"] > 0
+    assert cw["pairs"] == cw["chunks_entered"] * 128 * 256
+    assert parts["k2"].flops == 16 * cw["pairs"] + 12 * cw["live_pairs"]
+    assert parts["k3"].sfu == cw["pairs"] + 3 * cw["live_pairs"]
+    # the pixels: the loss reads the render and the target once
+    pix = GS_SMALL["width"] * GS_SMALL["height"]
+    assert parts["loss_fwd"].hbm_bytes == 2 * 4 * 3 * pix + 4
+    assert parts["loss_bwd"].hbm_bytes == 3 * 4 * 3 * pix
+    assert parts["k2"].hbm_bytes == (40 * cw["chunks_entered"] * 128
+                                     + 4 * attrs.shape[0] + 20 * pix
+                                     + 4 * cw["chunks_entered"] * 256)
+
+
+def test_gs_step_cost_ignores_tile_capacity(gs_step):
+    """No tile overflows 256 here, so capacity 256 and 512 render the same
+    view; only the padding differs, and the count does not see it."""
+    (w256, c256, (a256, _, _)), (w512, c512, (a512, _, _)) = (
+        _render(gs_step, 256), _render(gs_step, 512))
+    assert int(c512.max()) < 256 and torch.equal(c256, c512)
+    assert a256.shape[1] == 256 and a512.shape[1] == 512
+    assert w256 == w512
+    assert (troofline.gs_step_cost(**w256)
+            == troofline.gs_step_cost(**w512))
+
+
+def test_gs_step_cost_counts_ssim_as_its_separable_filter(gs_step):
+    """The loss's filter term is the 11-tap separable filter's: torch's
+    FLOP counter on a depthwise 1x11 then 11x1 'valid' convolution, which
+    computes gs/ssim.py's band products' result."""
+    from torch.utils.flop_counter import FlopCounterMode
+    W, H = GS_SMALL["width"], GS_SMALL["height"]
+    maps = torch.rand(1, 15, H, W, dtype=torch.float64)   # 5 maps x 3 ch
+    win = tssim._gauss_window(11, 1.5, torch.float64, "cpu")
+    with FlopCounterMode(display=False) as fc:
+        rows = torch.nn.functional.conv2d(
+            maps, win.view(1, 1, 1, 11).expand(15, 1, 1, 11), groups=15)
+        out = torch.nn.functional.conv2d(
+            rows, win.view(1, 1, 11, 1).expand(15, 1, 11, 1), groups=15)
+    np.testing.assert_allclose(out.numpy(),
+                               tssim._filter2d(maps, win).numpy(),
+                               rtol=0, atol=1e-12)
+    five = fc.get_total_flops()
+    assert troofline.ssim_filter_flops(W, H, 5) == five
+    n3, nv = 3 * W * H, 3 * (W - 10) * (H - 10)
+    parts = troofline.gs_step_cost(**gs_step.work()).parts
+    assert parts["loss_fwd"].flops == 3 * n3 + 3 * n3 + five + 18 * nv
+    assert parts["loss_bwd"].flops == (2 * n3 + 7 * n3 + five * 8 / 5
+                                       + 3 * 18 * nv)
+    # not the band products' count: 2 H W W' + 2 H' H W' a map and channel
+    band = 2 * 15 * (H * W * (W - 10) + (H - 10) * H * (W - 10))
+    assert band > 5 * five
+
+
+@pytest.mark.parametrize("t_step", [2e-3, 19.4e-3])
+def test_bench_gs_record_has_bench_gs_keys(gs_step, t_step):
+    """``bench_gs_torch``'s roofline keys, built from a fake step time as
+    ``test_analyze_analytic_matches_jax`` builds its own: ``bench_gs.py``'s
+    names (but ``vs_baseline``, its second name for ``roofline_frac``),
+    the share equal to the bound over the time."""
+    import ast
+    src = open(os.path.join(os.path.dirname(TOOLS), "bench_gs.py")).read()
+    jax_keys = {k.value for node in ast.walk(ast.parse(src))
+                if isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "update"
+                for arg in node.args if isinstance(arg, ast.Dict)
+                for k in arg.keys}
+    assert "roofline_frac" in jax_keys and "mfu" in jax_keys
+    work = gs_step.work()
+    rec = bench_gs_torch.roofline_record(work, t_step, troofline.H100_SXM)
+    assert jax_keys - {"vs_baseline"} <= set(rec)
+    assert "vs_baseline" not in rec and "roofline_note" not in rec
+    cost = troofline.gs_step_cost(**work)
+    spec = troofline.H100_SXM
+    t_light = max(cost.hbm_bytes / spec.peak_bw,
+                  cost.flops / spec.peak_flops_f32, cost.sfu / spec.peak_sfu)
+    assert rec["roofline_frac"] == pytest.approx(t_light / t_step, rel=1e-12)
+    assert rec["bound_ms"] == pytest.approx(t_light * 1e3, rel=1e-12)
+    assert rec["mfu"] == pytest.approx(
+        cost.flops / t_step / spec.peak_flops_f32, rel=1e-12)
+    assert rec["membw_util"] == pytest.approx(
+        cost.hbm_bytes / t_step / spec.peak_bw, rel=1e-12)
+    assert rec["bound"] in ("bytes", "operations", "sfu")
+    assert rec["chip"] == spec.name
+    assert rec["gflops_per_iter"] == cost.flops / 1e9
+    assert rec["hbm_gb_per_iter"] == cost.hbm_bytes / 1e9
+    assert set(rec["roofline_parts"]) == set(troofline.GS_PARTS)
+    assert max(rec["roofline_parts"].values()) <= rec["bound_ms"] <= sum(
+        rec["roofline_parts"].values())
+
+
+def test_time_by_scope_assigns_every_part(gs_step):
+    """One profiled step on the CPU: every counted part gets its ops' time
+    through the step's scopes and the autograd nodes' sequence numbers,
+    and what no part takes is a small share."""
+    from torch.profiler import ProfilerActivity, profile
+    step = gs_step
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+    parts, rest = tbench.time_by_scope(prof, 1, bench_gs_torch.PART_SCOPES,
+                                       bench_gs_torch.PART_KERNELS,
+                                       device=False)
+    assert set(parts) == set(troofline.GS_PARTS)
+    assert all(ms > 0 for ms in parts.values())
+    assert sum(ms for _, ms in rest) < 0.1 * sum(parts.values())

@@ -1,7 +1,8 @@
 """The port's pair-inlier scoring and fisheye undistorter against the JAX
 package's, ``chip_smoke.write_ring_db`` against ``bench_e2e.py``'s
 database writer, and ``chip_smoke.k1_check``'s bound on a cancelling
-track.
+track, and its rejection of faults, one of them a dropped row that the
+flat bound (a share of the absolute chain) lets through.
 
 Pair inliers: ``tests/test_aux_components.py::test_pair_inliers_scoring``'s
 two-view scene with the pair set in turn to CALIBRATED (its ground-truth
@@ -218,10 +219,31 @@ def _mixed_inputs():
             rng.standard_normal((C, PC)))
 
 
+def _long_track_inputs():
+    """8 tracks of 2,048 rows on 4 cameras whose sums t_p cancel to
+    rounding, PC = 3, as float64 numpy (layout, W, V_inv, x): a camera
+    entry sums 4,096 rows, each a 2,048-term track sum long, so one row's
+    share of the absolute chain is about 1e-7."""
+    rng = np.random.default_rng(2)
+    C, PC = 4, 3
+    bp = chip_smoke.k1_layout([2048] * 8, C, 2)
+    W = rng.standard_normal((len(bp.cam_idx), PC, 3)) * bp.valid[:, None, None]
+    x = rng.standard_normal((C, PC))
+    for p in range(bp.num_slots):
+        rows = np.nonzero((bp.pt_idx == p) & bp.valid)[0]
+        if len(rows) < 2:
+            continue
+        s = np.einsum("rij,ri->j", W[rows[:-1]], x[bp.cam_idx[rows[:-1]]])
+        xc = x[bp.cam_idx[rows[-1]]]
+        W[rows[-1]] = -np.outer(xc, s) / (xc @ xc)
+    A = rng.standard_normal((bp.num_slots, 3, 3))
+    return bp, W, A @ A.transpose(0, 2, 1) + np.eye(3), x
+
+
 def _k1_f32_f64(bp, W, V_inv, x, W_got=None, cam_got=None):
     """The plain version in float32 (on ``W_got`` and ``cam_got`` where
-    given) and in float64 on the float32 values, the absolute chain and the
-    sum of |u|."""
+    given) and in float64 on the float32 values, and the scales of K1's
+    tolerance (``chip_smoke.k1_scales``, in float64)."""
     f32 = [torch.tensor(a, dtype=torch.float32) for a in (W, V_inv, x)]
     f64 = [a.double() for a in f32]       # the same values in float64
     idx = [torch.as_tensor(bp.cam_idx), torch.as_tensor(bp.pt_idx)]
@@ -230,31 +252,40 @@ def _k1_f32_f64(bp, W, V_inv, x, W_got=None, cam_got=None):
         *f32[1:], idx[0] if cam_got is None else torch.as_tensor(cam_got),
         idx[1], bp.buckets)
     want = k1.schur_wchain_reference(*f64, *idx, bp.buckets)
-    return (got, want, chip_smoke.k1_abs_sums(*f64, *idx, bp.buckets),
-            chip_smoke.k1_u_sums(*f64, *idx, bp.buckets))
+    scales = chip_smoke.k1_scales(*f64, *idx, bp.buckets)
+    # the float32 result is held to the float32 roundoff
+    return got.double(), want, scales, torch.float32
+
+
+def _check(name, got, want, scales, dtype):
+    return chip_smoke.k1_check(name, got.to(dtype), want.to(dtype),
+                               chip_smoke.K1Scales(*(t.to(dtype)
+                                                     for t in scales)))
 
 
 def test_k1_check_bound_holds_on_cancelling_tracks():
     """On tracks whose sum t_p cancels, float32 against float64 on the same
-    inputs is within 1e-5 of the absolute chain, but far beyond 1e-5 of the
-    sum of |u|."""
-    got, want, chain, u_sums = _k1_f32_f64(*_cancelling_inputs())
-    err, over_chain, over_u, reach = chip_smoke.k1_check(
-        "cancelling tracks", got, want, chain, u_sums)
-    assert err > 0 and over_chain < chip_smoke.K1_TOL[torch.float32]
-    assert over_u > 10 * chip_smoke.K1_TOL[torch.float32]
-    assert reach > 0
+    inputs is within K1's bound and within 1e-5 of the absolute chain, but
+    far beyond 1e-5 of the sum of |u|; the bound reaches further than the
+    flat one."""
+    got, want, scales, dt = _k1_f32_f64(*_cancelling_inputs())
+    rec = _check("cancelling tracks", got, want, scales, dt)
+    assert rec["max_abs_err"] > 0
+    assert rec["max_err_over_abs_chain"] < chip_smoke.K1_TOL[torch.float32]
+    assert rec["max_err_over_abs_sum"] > 10 * chip_smoke.K1_TOL[torch.float32]
+    assert 0 < rec["min_bound_over_abs_y"] <= rec["min_tol_chain_over_abs_y"]
     with pytest.raises(AssertionError, match="absolute chain"):
-        chip_smoke.k1_check("the old scale", got, want, u_sums)
+        _check("the old scale", got, want, scales._replace(
+            chain=scales.u_abs), dt)
 
 
 @pytest.mark.parametrize("layout", ["cancelling", "mixed_pc8"])
 @pytest.mark.parametrize("fault", ["row_dropped", "cam_moved"])
 def test_k1_check_bound_rejects_a_wrong_result(layout, fault):
     """A result computed with one track row dropped (its W zeroed), or one
-    row's camera moved to the next camera, fails the absolute-chain bound
-    against the right result: on the cancelling tracks (the row is in the
-    first track) and on a PC = 8 layout of mixed track lengths."""
+    row's camera moved to the next camera, fails K1's bound against the
+    right result: on the cancelling tracks (the row is in the first track)
+    and on a PC = 8 layout of mixed track lengths."""
     bp, W, V_inv, x = (_cancelling_inputs() if layout == "cancelling"
                        else _mixed_inputs())
     row = int(np.nonzero((bp.pt_idx == 0) & bp.valid)[0][0])
@@ -265,6 +296,25 @@ def test_k1_check_bound_rejects_a_wrong_result(layout, fault):
     else:
         cam_got = bp.cam_idx.copy()
         cam_got[row] = (cam_got[row] + 1) % len(x)
-    got, want, chain, _ = _k1_f32_f64(bp, W, V_inv, x, W_got, cam_got)
+    got, want, scales, dt = _k1_f32_f64(bp, W, V_inv, x, W_got, cam_got)
     with pytest.raises(AssertionError, match="absolute chain"):
-        chip_smoke.k1_check(f"{layout}, {fault}", got, want, chain)
+        _check(f"{layout}, {fault}", got, want, scales, dt)
+
+
+def test_k1_check_rejects_what_the_flat_bound_let_through():
+    """On 2,048-row tracks that cancel, 4,096 rows a camera: float32 holds
+    K1's bound, and a result with one row dropped is within the flat bound
+    (1e-5 of the absolute chain, the check before the rounding count)
+    everywhere, but beyond K1's, which reaches over ten times further."""
+    inputs = _long_track_inputs()
+    got, want, scales, dt = _k1_f32_f64(*inputs)
+    rec = _check("long cancelling tracks", got, want, scales, dt)
+    assert rec["min_bound_over_abs_y"] < 0.1 * rec["min_tol_chain_over_abs_y"]
+    bp, W, V_inv, x = inputs
+    W_got = W.copy()
+    W_got[int(np.nonzero((bp.pt_idx == 0) & bp.valid)[0][0])] = 0.0
+    got, want, scales, dt = _k1_f32_f64(bp, W, V_inv, x, W_got)
+    flat = chip_smoke.K1_TOL[dt] * scales.chain
+    assert ((got - want).abs() <= flat).all()
+    with pytest.raises(AssertionError, match="absolute chain"):
+        _check("long cancelling tracks, row dropped", got, want, scales, dt)

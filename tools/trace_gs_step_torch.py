@@ -7,6 +7,13 @@ kernel name divided by the steps, largest first, with the device-busy time
 a step and its idle share, and writes the trace to
 ``gs_step_trace_torch.json`` in ``chip_smoke.OUT_DIR``.
 
+Then each part of ``utils/roofline.py::gs_step_cost`` with its device time
+a step beside its own bound (``parts``): a kernel goes to the part whose
+``gs:<part>`` scope launched it, or, in the backward, to the part whose
+forward op made its autograd node (``bench.time_by_scope``; K2 and K3 by
+name).  ``unassigned`` lists the kernels no part took (the untiling of the
+image, gradient accumulation), largest first.
+
     python3 tools/trace_gs_step_torch.py [steps (5)]
 
 Prints ONE JSON line last.  Needs a CUDA card.
@@ -20,7 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench_gs_torch
 from instantsfm_tpu_torch.gs import composite as k23
-from instantsfm_tpu_torch.utils import bench
+from instantsfm_tpu_torch.utils import bench, roofline
 from instantsfm_tpu_torch.utils.device import full_f32
 
 from chip_smoke import OUT_DIR
@@ -38,7 +45,32 @@ def trace(steps, device, out_dir=OUT_DIR):
     rec.update(metric="gs_step_device_breakdown",
                k2_launches_per_step=(k23.composite_fwd.launches - f0) / steps,
                k3_launches_per_step=(k23.composite_bwd.launches - b0) / steps)
+    device_ms, rest = bench.time_by_scope(prof, steps,
+                                          bench_gs_torch.PART_SCOPES,
+                                          bench_gs_torch.PART_KERNELS)
+    work = step.work()
+    cost = roofline.gs_step_cost(**work)
+    bounds = roofline.part_bounds_ms(cost)
+    rec.update(step_work=work, bound_ms=roofline.bound_ms(
+        cost.hbm_bytes, cost.flops, cost.sfu, roofline.chip_spec())[0])
+    rec["parts"] = {
+        part: dict(device_ms=device_ms.get(part, 0.0), bound_ms=bounds[part],
+                   bound_over_device=(bounds[part] / device_ms[part]
+                                      if device_ms.get(part) else None))
+        for part in roofline.GS_PARTS}
+    rec["unassigned"] = [dict(name=name[:100], ms_per_step=ms)
+                         for name, ms in rest]
     return rec
+
+
+def print_parts(rec):
+    print(f"{'part':<18} {'device ms':>10} {'bound ms':>10} {'bound/dev':>10}")
+    for part, p in rec["parts"].items():
+        share = p["bound_over_device"]
+        print(f"{part:<18} {p['device_ms']:>10.4f} {p['bound_ms']:>10.4f} "
+              f"{'-' if share is None else f'{share:.4f}':>10}")
+    print(f"unassigned: {sum(u['ms_per_step'] for u in rec['unassigned']):.4f}"
+          f" ms a step in {len(rec['unassigned'])} kernels")
 
 
 def main():
@@ -47,6 +79,7 @@ def main():
     with full_f32():
         rec = trace(steps, device)
     bench.print_breakdown(rec)
+    print_parts(rec)
     rec["device"] = bench.device_record()
     print(f"card: {rec['device']['nvidia_smi']}")
     print(json.dumps(rec))
