@@ -1,0 +1,8 @@
+"""Seconds a mapper pass spends in the program's ``rotation_averaging`` stage (its
+``timings``, after a device sync), mean over the window's passes."""
+
+from yardstick.readers import mean_span
+
+
+def read(run):
+    return mean_span(run, "rotation_averaging")
