@@ -16,9 +16,9 @@ the perturbed start, each ending in ``torch.cuda.synchronize()``;
 the analytic bound of the step (``utils/roofline.py::lm_step_cost`` at the
 PCG iterations the steps ran, camera sums by ``index_add_`` and K1, not
 one-hot products) over the median step, against the H100's published
-peaks; ``bound`` names the binding term.  K1 launches and host
-synchronisations a step are counted, the latter in a separate pass under
-CUDA's sync debug mode.
+peaks; ``bound`` names the binding term.  K1 launches and host reads a
+step (``host_syncs_per_step``: the reads of ``utils/debug.read`` in the
+timed steps) are counted.
 
 Knobs: ``BENCH_BA_CAMS``, ``BENCH_BA_PTS``, ``BENCH_BA_OBS_PER_PT`` (e.g.
 500 / 1000000 for the T&T shape) and ``BENCH_REPEATS``.
@@ -144,6 +144,7 @@ def measure(num_cams, num_pts, obs_per_pt, repeats, device):
     warm_s = time.perf_counter() - t0
 
     debug.drain_stats()
+    reads0 = debug.REGISTRY.read_count()
     launches0, plain0 = k1.schur_wchain.launches, k1.schur_wchain.plain_calls
     times = []
     for _ in range(repeats):
@@ -155,11 +156,10 @@ def measure(num_cams, num_pts, obs_per_pt, repeats, device):
         times.append(time.perf_counter() - t0)
     steps = repeats * N
     stats = debug.drain_stats()
+    reads = debug.REGISTRY.read_count() - reads0
     launches = k1.schur_wchain.launches - launches0
     plain = k1.schur_wchain.plain_calls - plain0
     cost = float(state.cost)
-    _, syncs = bench.count_syncs(lambda: run_steps(step, fresh_state(), N))
-    debug.drain_stats()
 
     dt = float(np.median(times))
     pcg_per_step = sum(stats["pcg_iters"]) / steps
@@ -191,7 +191,7 @@ def measure(num_cams, num_pts, obs_per_pt, repeats, device):
         "damped_solves_per_step": sum(stats["lm_tries"]) / steps,
         "k1_launches_per_step": launches / steps,
         "k1_plain_calls": plain,
-        "host_syncs_per_step": syncs / N,
+        "host_syncs_per_step": reads / steps,
         "rows": int(obs.valid.shape[0]),
         "point_slots": int(params.pts.shape[0]),
         "cost_after": cost,

@@ -3863,10 +3863,11 @@ def main(argv=None):
     k1_cases = k1_parity(device)
     k23_hand = k23_parity(device)
     first_jacfwd(device)
-    # --profile: also print the BA stage's host spans and LM iterations
-    debug.ENABLED = args.profile
+    # --profile: also print the BA phase's spans and reads (seconds, counts)
+    debug.REGISTRY.totals.clear()
     ba_rec, gt = run_ba(device)
-    debug.ENABLED = False
+    if args.profile:
+        log("BA_SPANS " + json.dumps(debug.REGISTRY.totals))
     gp_rec = run_gp_step(device, gt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
         sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)

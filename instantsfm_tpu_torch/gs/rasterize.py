@@ -17,9 +17,10 @@ Counterpart of ``instantsfm_tpu/gs/rasterize.py`` (its default route):
 Densification statistics come from the gradient w.r.t. an explicit
 screen-space offset probe (``means2d_offset``), gsplat's ``means2d.grad``.
 
-Each part runs under a ``record_function`` scope (``gs:projection``,
-``gs:sh``, ``gs:tile_sort``, ``gs:gather``, ``gs:composite``), by which a
-profile of a step assigns device time to the parts
+Each part runs under a span (``utils/debug.span``: ``gs:projection``,
+``gs:sh``, ``gs:tile_sort``, ``gs:gather``, ``gs:composite``), a
+``record_function`` scope under a profiler, by which a profile of a step
+assigns device time to the parts
 ``utils/roofline.py::gs_step_cost`` counts.
 """
 
@@ -28,9 +29,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from instantsfm_tpu_torch.gs import composite, projection, sh as sh_mod
+from instantsfm_tpu_torch.utils.debug import span
 
 TILE = 16
 
@@ -59,7 +60,7 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
                  eps2d: float = 0.3, means2d_offset=None,
                  camera_model: str = "pinhole") -> Projected2D:
     """EWA projection and SH colour for one view."""
-    with record_function("gs:projection"):
+    with span("gs:projection"):
         proj = projection.project(means, quats, scales, viewmat, Kmat,
                                   width, height, eps2d=eps2d,
                                   camera_model=camera_model)
@@ -67,7 +68,7 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
         if means2d_offset is not None:
             means2d = means2d + means2d_offset
 
-    with record_function("gs:sh"):
+    with span("gs:sh"):
         cam_pos = -viewmat[:3, :3].T @ viewmat[:3, 3]
         dirs = means - cam_pos
         dirs = dirs / torch.clamp(
@@ -158,11 +159,11 @@ def tile_attrs(p: Projected2D, width: int, height: int,
     nchunks [n_tiles] int32, ntx).  Differentiable in the packed
     attributes."""
     n_tiles_x = (width + TILE - 1) // TILE
-    with record_function("gs:tile_sort"):
+    with span("gs:tile_sort"):
         tile_gauss, counts = tile_windows(p.means2d, p.radii, p.valid,
                                           p.depths, width, height,
                                           tiles_per_gauss, tile_capacity)
-    with record_function("gs:gather"):
+    with span("gs:gather"):
         table = composite.pack_attrs(p.means2d, p.conics, p.colors, p.opac,
                                      p.depths)
         # index_select, not table[tile_gauss]: its transpose is index_add_
@@ -191,7 +192,7 @@ def rasterize_projected(p: Projected2D, width: int, height: int,
     nty = (height + TILE - 1) // TILE
     attrs, nchunks, _ = tile_attrs(p, width, height, tiles_per_gauss,
                                    tile_capacity)
-    with record_function("gs:composite"):
+    with span("gs:composite"):
         rgb, alpha, dep = composite.composite_tiles(attrs, nchunks, ntx)
     rgb = rgb.transpose(1, 2).to(dtype)                 # [n_tiles, P, 3]
     T = (1.0 - alpha).to(dtype)

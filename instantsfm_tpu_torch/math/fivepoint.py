@@ -17,12 +17,18 @@ the same fixed counts:
 5. [x, y, 1] from the best-conditioned cross product of two rows of B(z).
 
 Every step has a static shape over the leading (pairs x hypotheses) dims.
+The solver serves relative pose, and its spans (``utils/debug``) nest in
+that stage's ``relpose.fivepoint``: ``relpose.fivepoint.nullspace`` (1),
+``relpose.fivepoint.eliminate`` (2-3), ``relpose.fivepoint.roots`` (4) and
+``relpose.fivepoint.recover`` (5 and the matrices).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from instantsfm_tpu_torch.utils.debug import span
 
 _EPS = 1e-12
 
@@ -369,14 +375,23 @@ def five_point(x1, x2, polish: bool = True):
     valid [..., NUM_ROOT_SLOTS]); invalid slots hold identity placeholders.
     ``polish=False`` skips the Gauss-Newton constraint polish (RANSAC scores
     raw candidates and its LO re-estimation refines the winner)."""
-    basis = _nullspace4(x1, x2)                              # [..., 4, 3, 3]
-    A = _constraint_matrix(basis)
-    G, ok = _gauss_jordan10(A)
-    bx, by, b1 = _klm_rows(G)
-    n = _det_poly(bx, by, b1)                                # [..., 11]
-    z, valid = _real_roots10(n)
-    valid = valid & ok[..., None]
+    with span("relpose.fivepoint.nullspace"):
+        basis = _nullspace4(x1, x2)                          # [..., 4, 3, 3]
+    with span("relpose.fivepoint.eliminate"):
+        A = _constraint_matrix(basis)
+        G, ok = _gauss_jordan10(A)
+        bx, by, b1 = _klm_rows(G)
+        n = _det_poly(bx, by, b1)                            # [..., 11]
+    with span("relpose.fivepoint.roots"):
+        z, valid = _real_roots10(n)
+    with span("relpose.fivepoint.recover"):
+        return _recover(basis, A, bx, by, b1, z, valid & ok[..., None],
+                        polish)
 
+
+def _recover(basis, A, bx, by, b1, z, valid, polish):
+    """[x, y, 1] of every root from the best cross product of two rows of
+    B(z), then the Frobenius-normalized candidates (see ``five_point``)."""
     # evaluate B(z) rows and recover [x, y, 1] from the best cross product
     def polyval(c, zz):                                      # c [..., 3, n]
         acc = torch.broadcast_to(c[..., :1], c.shape[:-1] + (zz.shape[-1],))

@@ -19,7 +19,10 @@ the problem:
 
 The partition functions are numpy on the host and give the arrays the JAX
 package gives.  ``ISFM_NO_SHARD=1`` keeps a multi-process run's solves on
-one rank's device, as in JAX.
+one rank's device, as in JAX.  Spans (``utils/debug``): ``sharded.bucketize``
+and ``sharded.lm`` (the point-local solve), ``auto.bucketize`` and
+``auto.lm`` (the one-device solve); the partition functions' host reads are
+``sharded.host``.
 """
 
 from __future__ import annotations
@@ -38,12 +41,12 @@ from instantsfm_tpu_torch.solve import robust
 from instantsfm_tpu_torch.solve.block_lm import (LMConfig, Observations,
                                                  Params, lm_step, optimize)
 from instantsfm_tpu_torch.solve.blocked import TRACK_PAD, bucketize_problem
-from instantsfm_tpu_torch.utils.debug import span
+from instantsfm_tpu_torch.utils.debug import read, span
 from instantsfm_tpu_torch.utils.device import check_on_device
 
 
 def _host(t):
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+    return read("sharded.host", t) if isinstance(t, torch.Tensor) \
         else np.asarray(t)
 
 
@@ -309,7 +312,7 @@ def _check_same_problem(params: Params, obs: Observations, buckets):
     allsig = multihost.allgather_host_arrays(sig)
     if not (allsig == sig).all():
         raise RuntimeError("the ranks hold different LM problems (points, "
-                           f"rows, cameras, buckets): {allsig.tolist()}")
+                           f"rows, cameras, buckets): {allsig}")
 
 
 def optimize_sharded(problem, kernel, cfg: LMConfig, params: Params,
@@ -326,7 +329,7 @@ def optimize_sharded(problem, kernel, cfg: LMConfig, params: Params,
     dev = check_on_device(device, params.pts)
     world, rank = dist.get_world_size(), dist.get_rank()
     pad = -(-max(TRACK_PAD, world) // world) * world
-    with span("optimize_sharded bucketize"):
+    with span("sharded.bucketize"):
         params_b, obs_b, buckets, point_slots = bucketize_problem(
             params, obs, track_pad=pad)
     _check_same_problem(params_b, obs_b, buckets)
@@ -340,7 +343,7 @@ def optimize_sharded(problem, kernel, cfg: LMConfig, params: Params,
                                  meta.local_O)
     step = make_pointlocal_lm_step(problem, kernel, cfg,
                                    buckets=meta.local_buckets, device=dev)
-    with span("optimize_sharded lm loop"):
+    with span("sharded.lm"):
         state, history = optimize(problem, kernel, cfg, params_l, obs_l,
                                   verbose=verbose, device=dev, step_fn=step)
     # rank shards -> global bucket slots -> original point order
@@ -362,10 +365,10 @@ def optimize_auto(problem, kernel, cfg: LMConfig, params: Params,
     if shard_world() > 1:
         return optimize_sharded(problem, kernel, cfg, params, obs,
                                 verbose=verbose, device=device)
-    with span("optimize_auto bucketize"):
+    with span("auto.bucketize"):
         params_b, obs_b, buckets, point_slots = bucketize_problem(params,
                                                                   obs)
-    with span("optimize_auto lm loop"):
+    with span("auto.lm"):
         state, history = optimize(problem, kernel, cfg, params_b, obs_b,
                                   verbose=verbose, buckets=buckets,
                                   device=device)

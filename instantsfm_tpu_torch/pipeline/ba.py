@@ -9,7 +9,10 @@ the observations to the device once and runs the inter-round filters
 (cheirality, track length, normalized reprojection with a per-round
 threshold) as valid-mask updates on the device; over several ranks it runs
 JAX's per-round loop: ``bundle_adjustment``, undistortion and the
-normalized reprojection filter on the host.
+normalized reprojection filter on the host.  Spans: ``ba.prepare`` (the
+observations gathered and shipped), ``ba.optimize`` (one solve),
+``ba.bucketize``, ``ba.round`` and ``ba.readback``; host reads
+``ba.cameras`` and ``ba.points`` (with the rounds' valid mask).
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from instantsfm_tpu_torch.solve.blocked import (bucketize_problem, gather_pt,
                                                 seg_by_pt)
 from instantsfm_tpu_torch.solve.problems import make_ba_problem
 from instantsfm_tpu_torch.utils import debug as _dbg
-from instantsfm_tpu_torch.utils.debug import span
 from instantsfm_tpu_torch.utils.device import resolve_device
 
 
@@ -60,9 +62,10 @@ def _lm_config(opts: dict) -> LMConfig:
 
 
 def _write_back(cameras, images, u_img, cam):
-    images.qvec[u_img] = cam["q"].detach().cpu().numpy().astype(np.float64)
-    images.tvec[u_img] = cam["t"].detach().cpu().numpy().astype(np.float64)
-    intr = cam["intr"].detach().cpu().numpy().astype(np.float64)
+    q, t, intr = _dbg.read("ba.cameras", (cam["q"], cam["t"], cam["intr"]))
+    images.qvec[u_img] = q.astype(np.float64)
+    images.tvec[u_img] = t.astype(np.float64)
+    intr = intr.astype(np.float64)
     cam_of_img = images.cam_idx[u_img]
     for c in np.unique(cam_of_img):
         cameras.params[c] = intr[cam_of_img == c].mean(axis=0)
@@ -76,36 +79,40 @@ def bundle_adjustment(cameras: Cameras, images: Images, tracks: Tracks,
     model_id = cameras.uniform_model_id
     optimize_poses = bool(opts.get("optimize_poses", True))
 
-    track_ok = tracks.track_lengths() >= int(opts["min_num_view_per_track"])
-    obs_ok = track_ok[tracks.obs_track_idx()] & images.registered[tracks.obs_image]
-    oi = tracks.obs_image[obs_ok]
-    of = tracks.obs_feature[obs_ok]
-    ot = tracks.obs_track_idx()[obs_ok]
+    with _dbg.span("ba.prepare"):
+        track_ok = tracks.track_lengths() \
+            >= int(opts["min_num_view_per_track"])
+        obs_ok = track_ok[tracks.obs_track_idx()] \
+            & images.registered[tracks.obs_image]
+        oi = tracks.obs_image[obs_ok]
+        of = tracks.obs_feature[obs_ok]
+        ot = tracks.obs_track_idx()[obs_ok]
 
-    # cheirality cull z > 0.1 on the host
-    pt_cam = lie.se3_action_np(images.qvec[oi], images.tvec[oi],
-                               tracks.xyz[ot])
-    front = pt_cam[:, 2] > 0.1
-    oi, of, ot = oi[front], of[front], ot[front]
-    if len(oi) == 0:
-        return
+        # cheirality cull z > 0.1 on the host
+        pt_cam = lie.se3_action_np(images.qvec[oi], images.tvec[oi],
+                                   tracks.xyz[ot])
+        front = pt_cam[:, 2] > 0.1
+        oi, of, ot = oi[front], of[front], ot[front]
+        if len(oi) == 0:
+            return
 
-    u_img, cam_idx = np.unique(oi, return_inverse=True)
-    u_trk, pt_idx = np.unique(ot, return_inverse=True)
-    xy = images.kp_xy[images.kp_index(oi, of)]
-    params, obs = _pack(cameras, images, u_img, tracks.xyz[u_trk], cam_idx,
-                        pt_idx, xy, dtype, dev)
+        u_img, cam_idx = np.unique(oi, return_inverse=True)
+        u_trk, pt_idx = np.unique(ot, return_inverse=True)
+        xy = images.kp_xy[images.kp_index(oi, of)]
+        params, obs = _pack(cameras, images, u_img, tracks.xyz[u_trk],
+                            cam_idx, pt_idx, xy, dtype, dev)
 
     problem = make_ba_problem(model_id, optimize_poses=optimize_poses)
     kernel = robust.huber(float(opts["thres_loss_function"]))
-    with span("ba optimize"):
+    with _dbg.span("ba.optimize"):
         cam, pts, history = optimize_auto(
-            problem, kernel, _lm_config(opts), params, obs,
-            verbose=verbose or _dbg.ENABLED, device=dev)
+            problem, kernel, _lm_config(opts), params, obs, verbose=verbose,
+            device=dev)
     _dbg.stat_add("ba_lm_iters", len(history))
 
-    _write_back(cameras, images, u_img, cam)
-    tracks.xyz[u_trk] = pts.detach().cpu().numpy().astype(np.float64)
+    with _dbg.span("ba.readback"):
+        _write_back(cameras, images, u_img, cam)
+        tracks.xyz[u_trk] = _dbg.read("ba.points", pts).astype(np.float64)
 
 
 def _pre_mask(cam, pts, obs, base_valid, min_view: int, buckets):
@@ -153,24 +160,25 @@ def bundle_adjustment_rounds(cameras: Cameras, images: Images, tracks: Tracks,
     optimize_poses = bool(opts.get("optimize_poses", True))
     min_view = int(opts["min_num_view_per_track"])
 
-    obs_ok = images.registered[tracks.obs_image]
-    oi = tracks.obs_image[obs_ok]
-    of = tracks.obs_feature[obs_ok]
-    ot = tracks.obs_track_idx()[obs_ok]
-    if len(oi) == 0:
-        return tracks
+    with _dbg.span("ba.prepare"):
+        obs_ok = images.registered[tracks.obs_image]
+        oi = tracks.obs_image[obs_ok]
+        of = tracks.obs_feature[obs_ok]
+        ot = tracks.obs_track_idx()[obs_ok]
+        if len(oi) == 0:
+            return tracks
 
-    u_img, cam_idx = np.unique(oi, return_inverse=True)
-    u_trk, pt_idx = np.unique(ot, return_inverse=True)
-    xy = images.kp_xy[images.kp_index(oi, of)]
-    O = len(oi)
-    params, obs = _pack(cameras, images, u_img, tracks.xyz[u_trk], cam_idx,
-                        pt_idx, xy, dtype, dev)
+        u_img, cam_idx = np.unique(oi, return_inverse=True)
+        u_trk, pt_idx = np.unique(ot, return_inverse=True)
+        xy = images.kp_xy[images.kp_index(oi, of)]
+        O = len(oi)
+        params, obs = _pack(cameras, images, u_img, tracks.xyz[u_trk],
+                            cam_idx, pt_idx, xy, dtype, dev)
 
     problem = make_ba_problem(model_id, optimize_poses=optimize_poses)
     cfg = _lm_config(opts)
     kernel = robust.huber(float(opts["thres_loss_function"]))
-    with span("ba bucketize (once)"):
+    with _dbg.span("ba.bucketize"):
         params_b, obs_b, buckets, point_slots, (obs_order, obs_dest) = \
             bucketize_problem(params, obs, return_mapping=True)
 
@@ -179,25 +187,24 @@ def bundle_adjustment_rounds(cameras: Cameras, images: Images, tracks: Tracks,
         valid = _pre_mask(params_b.cam, params_b.pts, obs_b, valid,
                           min_view, buckets)
         obs_b = obs_b._replace(valid=valid)
-        with span(f"ba round {r} lm"):
+        with _dbg.span("ba.round"):
             state, history = optimize(problem, kernel, cfg, params_b, obs_b,
-                                      verbose=verbose or _dbg.ENABLED,
-                                      buckets=buckets, device=dev)
+                                      verbose=verbose, buckets=buckets,
+                                      device=dev)
         params_b = state.params
         _dbg.stat_add("ba_lm_iters", len(history))
         thr = max_reproj_error * max(1, rounds - r)
         valid = _post_mask(model_id, params_b.cam, params_b.pts, obs_b,
                            valid, thr)
 
-    with span("ba readback"):
+    with _dbg.span("ba.readback"):
         _write_back(cameras, images, u_img, params_b.cam)
-        pts_b = params_b.pts.detach().cpu().numpy()
-        valid_np = valid.cpu().numpy()
-    tracks.xyz[u_trk] = pts_b[point_slots].astype(np.float64)
+        pts_b, valid_np = _dbg.read("ba.points", (params_b.pts, valid))
+        tracks.xyz[u_trk] = pts_b[point_slots].astype(np.float64)
 
-    # bucketed mask -> original observation order -> filtered tracks
-    keep_sub = np.empty(O, bool)
-    keep_sub[obs_order] = valid_np[obs_dest]
-    keep_full = np.zeros(tracks.num_observations, bool)
-    keep_full[np.nonzero(obs_ok)[0]] = keep_sub
-    return tracks.filter_observations(keep_full)
+        # bucketed mask -> original observation order -> filtered tracks
+        keep_sub = np.empty(O, bool)
+        keep_sub[obs_order] = valid_np[obs_dest]
+        keep_full = np.zeros(tracks.num_observations, bool)
+        keep_full[np.nonzero(obs_ok)[0]] = keep_sub
+        return tracks.filter_observations(keep_full)

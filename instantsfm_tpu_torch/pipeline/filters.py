@@ -1,5 +1,8 @@
 """Relative-pose filters, vectorized on the host (counterpart of
-``instantsfm_tpu/pipeline/filters.py``)."""
+``instantsfm_tpu/pipeline/filters.py``).  Each reads nothing from the
+device and is a span (``utils/debug``) named for the stage it serves:
+``relpose.filter_inlier_num``, ``relpose.filter_inlier_ratio`` and
+``ra.filter_rotations``."""
 
 from __future__ import annotations
 
@@ -8,8 +11,10 @@ import torch
 
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.scene.types import Images, ViewGraph
+from instantsfm_tpu_torch.utils.debug import traced
 
 
+@traced("relpose.filter_inlier_num")
 def filter_inlier_num(view_graph: ViewGraph, min_inlier_num: int) -> int:
     """Invalidate pairs with too few RANSAC inliers."""
     inl = view_graph.num_inliers_per_pair()
@@ -18,6 +23,7 @@ def filter_inlier_num(view_graph: ViewGraph, min_inlier_num: int) -> int:
     return int(bad.sum())
 
 
+@traced("relpose.filter_inlier_ratio")
 def filter_inlier_ratio(view_graph: ViewGraph, min_inlier_ratio: float) -> int:
     """Invalidate pairs with a low inlier ratio."""
     inl = view_graph.num_inliers_per_pair().astype(np.float64)
@@ -28,6 +34,7 @@ def filter_inlier_ratio(view_graph: ViewGraph, min_inlier_ratio: float) -> int:
     return int(bad.sum())
 
 
+@traced("ra.filter_rotations")
 def filter_rotations(view_graph: ViewGraph, images: Images,
                      max_angle_deg: float) -> int:
     """Invalidate pairs whose relative rotation disagrees with the current

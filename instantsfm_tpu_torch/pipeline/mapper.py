@@ -26,6 +26,7 @@ from instantsfm_tpu_torch.pipeline import (ba, filters, positioning,
                                            rotation_averaging, track_filters,
                                            tracks as tracks_mod, vgc)
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks, ViewGraph
+from instantsfm_tpu_torch.utils import debug
 from instantsfm_tpu_torch.utils.device import resolve_device
 
 
@@ -35,19 +36,21 @@ class PipelineError(RuntimeError):
 
 @contextlib.contextmanager
 def _stage(name: str, key: str, timings: dict, log, dev):
-    """Log the stage, run it inside a ``record_function("stage:<name>")``
-    span and record its host seconds (after the device has finished)."""
+    """Log the stage, run it inside the span ``stage:<name>``
+    (``utils/debug.span``) and record its host seconds (after the device has
+    finished)."""
     log("-------------------------------------")
     log(f"Running {name} ...")
     log("-------------------------------------")
-    t0 = time.time()
-    with torch.profiler.record_function(f"stage:{name}"):
+    t0 = time.perf_counter()
+    with debug.span(f"stage:{name}"):
         yield
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    timings[key] = time.time() - t0
+    timings[key] = time.perf_counter() - t0
 
 
+@debug.traced("mapper")
 def solve_global_mapper(view_graph: ViewGraph, cameras: Cameras,
                         images: Images, config: Config,
                         depths_available: bool = False, visualizer=None,
@@ -56,8 +59,9 @@ def solve_global_mapper(view_graph: ViewGraph, cameras: Cameras,
     """Run the full global-SfM stage sequence; returns (cameras, images,
     tracks, timings) with ``timings`` in host seconds per stage.
 
-    Each stage runs inside a ``torch.profiler.record_function("stage:<name>")``
-    span, so a caller's ``torch.profiler.profile`` shows the stages.
+    The whole run is the span ``mapper`` and each stage the span
+    ``stage:<name>`` inside it (``utils/debug.span``), which a caller's
+    ``torch.profiler.profile`` shows as ``record_function`` scopes.
     ``stage_hook(name, cameras, images, tracks)``, if given, is called after
     each completed stage.  ``ransac_uniforms`` replaces the relative-pose
     RANSAC draws (``relpose.estimate_relative_pose``'s ``uniforms``)."""

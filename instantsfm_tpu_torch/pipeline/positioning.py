@@ -20,7 +20,9 @@ scale blocks eliminated, so every PCG matvec goes through K1
 The spanning-tree init (``opts["init"] == "tree"``) is opt-in, as in the
 JAX package, where it was measured negative.  The solve goes through
 ``parallel.sharded.optimize_auto``: one device, or the point-local solve
-over every rank of a process group.
+over every rank of a process group.  Spans: ``gp.prepare`` (the problem
+from the tracks), ``gp.optimize`` (the solve) and ``gp.writeback`` (its
+read ``gp.result``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from instantsfm_tpu_torch.parallel.sharded import optimize_auto
 from instantsfm_tpu_torch.solve.block_lm import LMConfig, Observations, Params
 from instantsfm_tpu_torch.solve.problems import make_gp_problem
 from instantsfm_tpu_torch.utils import debug as _dbg
-from instantsfm_tpu_torch.utils.debug import span
 from instantsfm_tpu_torch.utils.device import resolve_device
 
 
@@ -66,7 +67,7 @@ def _tree_init(view_graph, images, tracks, reg_idx, scene_scale):
     order, pred = breadth_first_order(mst, root, directed=False,
                                       return_predecessors=True)
     key = ei.astype(np.int64) * n + ej
-    edge_row = dict(zip(key.tolist(), np.nonzero(mask)[0].tolist()))
+    edge_row = dict(zip(map(int, key), map(int, np.nonzero(mask)[0])))
 
     t = view_graph.tvec[mask]
     nrm = np.linalg.norm(t, axis=-1, keepdims=True)
@@ -123,16 +124,11 @@ def _tree_init(view_graph, images, tracks, reg_idx, scene_scale):
     return c, pts
 
 
-def global_positioning(cameras: Cameras, images: Images, tracks: Tracks,
-                       opts: dict, depths_available: bool = False,
-                       dtype=torch.float64, seed: int = 0,
-                       verbose: bool = False, view_graph=None,
-                       device="cuda") -> Tracks:
-    """Solve centers and points; writes ``images.tvec`` (t = -R c) and
-    returns the tracks with their new points.  ``opts["init"] == "tree"``
-    with a ``view_graph`` starts from the spanning-tree init."""
-    dev = resolve_device(device)
-
+@_dbg.traced("gp.prepare")
+def _problem(cameras, images, tracks, opts, depths_available, dtype, seed,
+             view_graph, dev):
+    """The tracks kept, the registered images and GP's start and
+    observations on the device."""
     # ---- drop short tracks (whole tracks)
     tracks = tracks.filter_tracks(
         tracks.track_lengths() >= int(opts["min_num_view_per_track"]))
@@ -192,20 +188,36 @@ def global_positioning(cameras: Cameras, images: Images, tracks: Tracks,
         data={"tx": t(t_obs[:, 0]), "ty": t(t_obs[:, 1]),
               "tz": t(t_obs[:, 2]), "w": t(w)},
         valid=torch.ones(O, dtype=torch.bool, device=dev))
+    return tracks, reg_idx, params, obs
+
+
+def global_positioning(cameras: Cameras, images: Images, tracks: Tracks,
+                       opts: dict, depths_available: bool = False,
+                       dtype=torch.float64, seed: int = 0,
+                       verbose: bool = False, view_graph=None,
+                       device="cuda") -> Tracks:
+    """Solve centers and points; writes ``images.tvec`` (t = -R c) and
+    returns the tracks with their new points.  ``opts["init"] == "tree"``
+    with a ``view_graph`` starts from the spanning-tree init."""
+    dev = resolve_device(device)
+    tracks, reg_idx, params, obs = _problem(
+        cameras, images, tracks, opts, depths_available, dtype, seed,
+        view_graph, dev)
     cfg = LMConfig(max_iterations=int(opts["max_num_iterations"]),
                    function_tolerance=float(opts["function_tolerance"]),
                    radius_init=1e3, radius_max=1e8)
     kernel = robust.huber(float(opts["thres_loss_function"]))
 
-    with span("gp optimize"):
+    with _dbg.span("gp.optimize"):
         cam, pts, history = optimize_auto(
-            make_gp_problem(), kernel, cfg, params, obs,
-            verbose=verbose or _dbg.ENABLED, device=dev)
+            make_gp_problem(), kernel, cfg, params, obs, verbose=verbose,
+            device=dev)
     _dbg.stat_add("gp_lm_iters", len(history))
 
     # ---- write back (t = -R c)
-    new_centers = cam["c"].detach().cpu().numpy().astype(np.float64)
-    images.tvec[reg_idx] = -lie.quat_rotate_np(images.qvec[reg_idx],
-                                               new_centers)
-    tracks.xyz = pts.detach().cpu().numpy().astype(np.float64)
+    with _dbg.span("gp.writeback"):
+        new_centers, xyz = _dbg.read("gp.result", (cam["c"], pts))
+        images.tvec[reg_idx] = -lie.quat_rotate_np(
+            images.qvec[reg_idx], new_centers.astype(np.float64))
+        tracks.xyz = xyz.astype(np.float64)
     return tracks

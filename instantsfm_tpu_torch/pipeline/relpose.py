@@ -40,6 +40,16 @@ owner then sends its [P, 34] float64 estimates (E, q, t, F, H) and its
 JAX package exchanges E, q and t only, so there F and H stay on the
 process that estimated them; here every process ends with the same view
 graph.
+
+Spans (``utils/debug``): ``relpose.undistort``; per chunk ``relpose.chunk``
+with ``relpose.pack`` (the padded match arrays), ``relpose.draw`` (the
+uniforms), ``relpose.fivepoint`` (samples and hypotheses; or
+``relpose.eightpoint``), ``relpose.score`` (the candidates' inlier counts),
+``relpose.refine`` (local optimisation and the final inliers),
+``relpose.homography``, ``relpose.recover_pose``; then
+``relpose.writeback``.  Host reads: ``relpose.undistort``, ``relpose.F``,
+``relpose.H``, ``relpose.writeback`` and, across processes,
+``relpose.exchange``.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ from instantsfm_tpu_torch.scene.types import (CONFIG_CALIBRATED, CONFIG_PANORAMI
                                               CONFIG_PLANAR_OR_PANORAMIC,
                                               CONFIG_UNCALIBRATED, Cameras,
                                               Images, ViewGraph)
-from instantsfm_tpu_torch.utils.debug import span
+from instantsfm_tpu_torch.utils.debug import read, span
 from instantsfm_tpu_torch.utils.device import resolve_device
 
 _ESTIMABLE = (CONFIG_PLANAR, CONFIG_PANORAMIC, CONFIG_PLANAR_OR_PANORAMIC,
@@ -87,13 +97,16 @@ def undistort_images(cameras: Cameras, images: Images, device="cuda") -> None:
     if getattr(images, "_undistort_key", None) == key \
             and images.kp_bearing is not None:
         return
-    kp_img = np.repeat(np.arange(images.num_images), np.diff(images.kp_offset))
-    params = torch.as_tensor(cameras.params, dtype=torch.float64, device=dev)
-    cam_of_kp = torch.as_tensor(images.cam_idx[kp_img].astype(np.int64),
-                                device=dev)
-    xy = torch.as_tensor(images.kp_xy, dtype=torch.float64, device=dev)
-    b = cam_models.bearing_from_img(model_id, params[cam_of_kp], xy)
-    images.kp_bearing = b.cpu().numpy()
+    with span("relpose.undistort"):
+        kp_img = np.repeat(np.arange(images.num_images),
+                           np.diff(images.kp_offset))
+        params = torch.as_tensor(cameras.params, dtype=torch.float64,
+                                 device=dev)
+        cam_of_kp = torch.as_tensor(images.cam_idx[kp_img].astype(np.int64),
+                                    device=dev)
+        xy = torch.as_tensor(images.kp_xy, dtype=torch.float64, device=dev)
+        b = cam_models.bearing_from_img(model_id, params[cam_of_kp], xy)
+        images.kp_bearing = read("relpose.undistort", b)
     images._undistort_key = key
 
 
@@ -169,14 +182,19 @@ def _ransac_fundamental_like(x1, x2, valid, u, thresh_sq, essential: bool):
 
     x1, x2: [P, M, 2]; valid: [P, M]; u: [P, H, 8].
     Returns (F [P, 3, 3], inliers [P, M])."""
-    s1, s2 = _samples(x1, x2, valid, u)
-    F_h = epipolar.eight_point(s1, s2, torch.ones(u.shape, dtype=torch.bool,
-                                                  device=u.device), essential)
-    F, _ = _score_best(epipolar.sampson_error, F_h,
-                       torch.ones(u.shape[:2], dtype=torch.bool, device=u.device),
-                       x1, x2, valid, thresh_sq)
-    inliers = (epipolar.sampson_error(F, x1, x2) < thresh_sq) & valid
-    return _local_opt(F, inliers, x1, x2, valid, thresh_sq, essential)
+    with span("relpose.eightpoint"):
+        s1, s2 = _samples(x1, x2, valid, u)
+        F_h = epipolar.eight_point(
+            s1, s2, torch.ones(u.shape, dtype=torch.bool, device=u.device),
+            essential)
+    with span("relpose.score"):
+        F, _ = _score_best(epipolar.sampson_error, F_h,
+                           torch.ones(u.shape[:2], dtype=torch.bool,
+                                      device=u.device),
+                           x1, x2, valid, thresh_sq)
+    with span("relpose.refine"):
+        inliers = (epipolar.sampson_error(F, x1, x2) < thresh_sq) & valid
+        return _local_opt(F, inliers, x1, x2, valid, thresh_sq, essential)
 
 
 def _ransac_essential_5pt(x1, x2, valid, u, thresh_sq):
@@ -184,13 +202,17 @@ def _ransac_essential_5pt(x1, x2, valid, u, thresh_sq):
     ``fivepoint.NUM_ROOT_SLOTS`` candidates, all scored; the winner's inlier
     set seeds two LO rounds.  u: [P, H, 5]."""
     P, H = u.shape[:2]
-    s1, s2 = _samples(x1, x2, valid, u)
-    E_h, ok = fivepoint.five_point(s1, s2, polish=False)   # [P,H,S,3,3], [P,H,S]
+    with span("relpose.fivepoint"):
+        s1, s2 = _samples(x1, x2, valid, u)
+        E_h, ok = fivepoint.five_point(s1, s2, polish=False)  # [P,H,S,3,3]
     S = fivepoint.NUM_ROOT_SLOTS
-    E, _ = _score_best(epipolar.sampson_error, E_h.reshape(P, H * S, 3, 3),
-                       ok.reshape(P, H * S), x1, x2, valid, thresh_sq)
-    inliers = (epipolar.sampson_error(E, x1, x2) < thresh_sq) & valid
-    return _local_opt(E, inliers, x1, x2, valid, thresh_sq, True)
+    with span("relpose.score"):
+        E, _ = _score_best(epipolar.sampson_error,
+                           E_h.reshape(P, H * S, 3, 3), ok.reshape(P, H * S),
+                           x1, x2, valid, thresh_sq)
+    with span("relpose.refine"):
+        inliers = (epipolar.sampson_error(E, x1, x2) < thresh_sq) & valid
+        return _local_opt(E, inliers, x1, x2, valid, thresh_sq, True)
 
 
 def _ransac_homography(x1, x2, valid, u, thresh_sq):
@@ -297,17 +319,17 @@ def estimate_relative_pose(view_graph: ViewGraph, cameras: Cameras,
         if k % n_proc != rank:
             pending.append(None)             # another process owns it
             continue
-        with span(f"relpose chunk P={len(rows)} M={M}"):
+        with span("relpose.chunk"):
             pending.append(_process_chunk(
                 view_graph, rows, M, k, draw, dtype, dev, chunk_pairs,
                 num_hyps, five_point, num_hyps_minimal,
                 (tab, matches, match_offset, kp_base_i, kp_base_j)))
     if n_proc == 1:
         # every chunk is queued before the first readback
-        for rows, E, q, t, mask in pending:
-            _writeback_chunk(view_graph, rows, E.cpu().numpy(),
-                             q.cpu().numpy(), t.cpu().numpy(),
-                             mask.cpu().numpy())
+        with span("relpose.writeback"):
+            for rows, E, q, t, mask in pending:
+                _writeback_chunk(view_graph, rows,
+                                 *read("relpose.writeback", (E, q, t, mask)))
         return
 
     # exchange: each chunk's owner sends its estimates and mask bits to
@@ -318,12 +340,13 @@ def estimate_relative_pose(view_graph: ViewGraph, cameras: Cameras,
         bits = np.zeros((P, -(-M // 8)), np.uint8)
         if pending[k] is not None:
             _, E, q, t, mask = pending[k]
+            E, q, t, mask = read("relpose.exchange",
+                                 (E.double(), q.double(), t.double(), mask))
             flat = np.concatenate([
-                E.double().cpu().numpy().reshape(P, 9),
-                q.double().cpu().numpy(), t.double().cpu().numpy(),
+                E.reshape(P, 9), q, t,
                 view_graph.F_mat[rows].reshape(P, 9),
                 view_graph.H_mat[rows].reshape(P, 9)], axis=1)
-            bits = np.packbits(mask.cpu().numpy(), axis=1, bitorder="little")
+            bits = np.packbits(mask, axis=1, bitorder="little")
         owner = k % n_proc
         flat = multihost.allgather_host_arrays(flat)[owner]
         bits = multihost.allgather_host_arrays(bits)[owner]
@@ -369,8 +392,9 @@ def _process_chunk(view_graph, rows, M, k, draw, dtype, dev, chunk_pairs,
     """One chunk's estimates, left on the device: (rows, E [n,3,3],
     q [n,4], t [n,3], final inlier mask [n, M])."""
     n = len(rows)
-    x1_pix, x2_pix, x1_norm, x2_norm, b1, b2, valid = _pack_chunk(
-        tables, torch.as_tensor(rows.astype(np.int64), device=dev), M)
+    with span("relpose.pack"):
+        x1_pix, x2_pix, x1_norm, x2_norm, b1, b2, valid = _pack_chunk(
+            tables, torch.as_tensor(rows.astype(np.int64), device=dev), M)
 
     # estimation cap: sampling, scoring and LO run on a strided subsample of
     # at most _ESTIMATE_CAP matches per pair; inlier and cheirality masks are
@@ -381,14 +405,18 @@ def _process_chunk(view_graph, rows, M, k, draw, dtype, dev, chunk_pairs,
 
     e_thresh = torch.tensor(1e-3 ** 2, dtype=dtype, device=dev)
     if five_point:
-        u = _draw(draw, k, "E", (chunk_pairs, num_hyps_minimal, 5), n, dev)
+        with span("relpose.draw"):
+            u = _draw(draw, k, "E", (chunk_pairs, num_hyps_minimal, 5), n,
+                      dev)
         E, _ = _ransac_essential_5pt(ss(x1_norm), ss(x2_norm), ss(valid), u,
                                      e_thresh)
     else:
-        u = _draw(draw, k, "E", (chunk_pairs, num_hyps, 8), n, dev)
+        with span("relpose.draw"):
+            u = _draw(draw, k, "E", (chunk_pairs, num_hyps, 8), n, dev)
         E, _ = _ransac_fundamental_like(ss(x1_norm), ss(x2_norm), ss(valid),
                                         u, e_thresh, essential=True)
-    sel_inl = _model_inliers(E, x1_norm, x2_norm, valid, e_thresh)
+    with span("relpose.refine"):
+        sel_inl = _model_inliers(E, x1_norm, x2_norm, valid, e_thresh)
 
     cfgs = view_graph.config[rows]
     pix_thresh = torch.tensor(3.0 ** 2, dtype=dtype, device=dev)
@@ -401,25 +429,27 @@ def _process_chunk(view_graph, rows, M, k, draw, dtype, dev, chunk_pairs,
         F, _ = _ransac_fundamental_like(ss(x1_pix)[sel], ss(x2_pix)[sel],
                                         ss(valid)[sel], u, pix_thresh,
                                         essential=False)
-        view_graph.F_mat[rows[uncal]] = F.double().cpu().numpy()
+        view_graph.F_mat[rows[uncal]] = read("relpose.F", F.double())
         sel_inl[sel] = _model_inliers(F, x1_pix[sel], x2_pix[sel], valid[sel],
                                       pix_thresh)
     if len(planar):
         sel = torch.as_tensor(planar, device=dev)
         u = _draw(draw, k, "H", (len(planar), num_hyps, 4), len(planar), dev)
-        H, _ = _ransac_homography(ss(x1_pix)[sel], ss(x2_pix)[sel],
-                                  ss(valid)[sel], u, pix_thresh)
-        view_graph.H_mat[rows[planar]] = H.double().cpu().numpy()
+        with span("relpose.homography"):
+            H, _ = _ransac_homography(ss(x1_pix)[sel], ss(x2_pix)[sel],
+                                      ss(valid)[sel], u, pix_thresh)
+        view_graph.H_mat[rows[planar]] = read("relpose.H", H.double())
         sel_inl[sel] = _model_inliers(H, x1_pix[sel], x2_pix[sel], valid[sel],
                                       pix_thresh, kind="homography")
 
-    if M > Ms:
-        # vote for (R, t) on the subsample; cheirality mask on all matches
-        Rm, t, _ = epipolar.recover_pose(E, ss(b1), ss(b2), ss(sel_inl))
-        pass_mask = epipolar.cheirality_mask(Rm, t, b1, b2, sel_inl)
-    else:
-        Rm, t, pass_mask = epipolar.recover_pose(E, b1, b2, sel_inl)
-    return rows, E, lie.matrix_to_quat(Rm), t, pass_mask
+    with span("relpose.recover_pose"):
+        if M > Ms:
+            # vote for (R, t) on the subsample; cheirality mask on all matches
+            Rm, t, _ = epipolar.recover_pose(E, ss(b1), ss(b2), ss(sel_inl))
+            pass_mask = epipolar.cheirality_mask(Rm, t, b1, b2, sel_inl)
+        else:
+            Rm, t, pass_mask = epipolar.recover_pose(E, b1, b2, sel_inl)
+        return rows, E, lie.matrix_to_quat(Rm), t, pass_mask
 
 
 def _writeback_chunk(view_graph, rows, E, q, t, pass_mask):

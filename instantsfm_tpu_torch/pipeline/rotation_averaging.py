@@ -16,8 +16,12 @@ The JAX package runs the whole schedule as nested ``lax.while_loop``s on
 the device.  Here the CG iterations, by far the most numerous, run in
 blocks of ``CG_BLOCK`` with the state frozen once the exit test fires
 (``utils/loops.py``), one host read per block; the L1, ADMM and IRLS loops
-read their exit test once an iteration.  The reads are counted
-(``debug`` stat ``ra_syncs``).
+read their exit test once an iteration.  The reads are counted (``debug``
+stat ``ra_syncs``) and go through ``utils/debug.read`` at the sites
+``ra.cg``, ``ra.admm``, ``ra.l1`` and ``ra.irls``, with the result's read
+``ra.result``.  Spans: ``ra.mst`` (the host's spanning-tree start), each
+L1 round ``ra.l1``, ADMM iteration ``ra.admm``, CG solve ``ra.cg`` and
+IRLS round ``ra.irls``.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ def _mst_init(view_graph: ViewGraph, images: Images) -> None:
 
     # edge lookup: (min, max) -> edge row for relative quats
     key = ei.astype(np.int64) * n + ej
-    edge_row = dict(zip(key.tolist(), np.nonzero(mask)[0].tolist()))
+    edge_row = dict(zip(map(int, key), map(int, np.nonzero(mask)[0])))
 
     def npq_conj(q):
         return np.concatenate([-q[..., :3], q[..., 3:4]], axis=-1)
@@ -157,6 +161,7 @@ def _jacobi_diag(w, data, n):
     return d
 
 
+@_dbg.traced("ra.cg")
 def _cg(w, rhs, data, n, x0, iters, syncs, tol=1e-10):
     diag = _jacobi_diag(w, data, n)
     inv_diag = torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))[:, None]
@@ -206,20 +211,23 @@ def _admm_l1(w_ones, b, data, n, x0, rho, alpha, admm_iters, cg_iters,
     x, z, u = x0, torch.zeros_like(b), torch.zeros_like(b)
     kappa = 1.0 / rho
     for _ in range(admm_iters):
-        rhs = _At_mv(b + z - u, data, n)
-        x = _cg(w_ones, rhs, data, n, x, cg_iters, syncs)
-        ax = _A_mv(x, data)
-        ax_hat = alpha * ax + (1 - alpha) * (z + b)
-        z_old = z
-        v = ax_hat - b + u
-        z = torch.clamp_min(v - kappa, 0.0) - torch.clamp_min(-v - kappa, 0.0)
-        u = u + ax_hat - z - b
-        r_norm = _fro(ax - z - b)
-        s_norm = _fro(rho * _At_mv(z - z_old, data, n))
-        max_norm = torch.maximum(torch.maximum(_fro(ax), _fro(z)), b_norm)
-        pri_eps = pri_eps0 + rel_tol * max_norm
-        dua_eps = dua_eps0 + rel_tol * _fro(rho * _At_mv(u, data, n))
-        if syncs.read("admm", (r_norm < pri_eps) & (s_norm < dua_eps)):
+        with _dbg.span("ra.admm"):
+            rhs = _At_mv(b + z - u, data, n)
+            x = _cg(w_ones, rhs, data, n, x, cg_iters, syncs)
+            ax = _A_mv(x, data)
+            ax_hat = alpha * ax + (1 - alpha) * (z + b)
+            z_old = z
+            v = ax_hat - b + u
+            z = torch.clamp_min(v - kappa, 0.0) \
+                - torch.clamp_min(-v - kappa, 0.0)
+            u = u + ax_hat - z - b
+            r_norm = _fro(ax - z - b)
+            s_norm = _fro(rho * _At_mv(z - z_old, data, n))
+            max_norm = torch.maximum(torch.maximum(_fro(ax), _fro(z)), b_norm)
+            pri_eps = pri_eps0 + rel_tol * max_norm
+            dua_eps = dua_eps0 + rel_tol * _fro(rho * _At_mv(u, data, n))
+            done = syncs.read("admm", (r_norm < pri_eps) & (s_norm < dua_eps))
+        if done:
             break
     return x
 
@@ -237,33 +245,38 @@ def _ra_core(data: _RAData, n: int, opts: tuple, syncs: SyncCounter):
     last_norm = torch.zeros((), dtype=dt, device=dev)
     admm_iters = 10
     for _ in range(max_l1):
-        b = _residuals(q, data)
-        step = _admm_l1(w_ones, b, data, n, torch.zeros((n, 3), dtype=dt,
-                                                        device=dev),
-                        l1_rho, l1_alpha, admm_iters, 100, l1_abs, l1_rel,
-                        syncs)
-        curr_norm = _fro(step)
-        q = _update_rotations(q, step)
-        avg_step = torch.mean(torch.sqrt(torch.sum(step * step, dim=-1)))
-        done = (avg_step < l1_conv) | (torch.abs(last_norm - curr_norm) < 1e-6)
-        last_norm = curr_norm
-        admm_iters = min(admm_iters * 2, 100)
-        if syncs.read("l1", done):
+        with _dbg.span("ra.l1"):
+            b = _residuals(q, data)
+            step = _admm_l1(w_ones, b, data, n,
+                            torch.zeros((n, 3), dtype=dt, device=dev),
+                            l1_rho, l1_alpha, admm_iters, 100, l1_abs, l1_rel,
+                            syncs)
+            curr_norm = _fro(step)
+            q = _update_rotations(q, step)
+            avg_step = torch.mean(torch.sqrt(torch.sum(step * step, dim=-1)))
+            done = (avg_step < l1_conv) \
+                | (torch.abs(last_norm - curr_norm) < 1e-6)
+            last_norm = curr_norm
+            admm_iters = min(admm_iters * 2, 100)
+            done = syncs.read("l1", done)
+        if done:
             break
 
     # ---------------- IRLS stage --------------------------------------------
     sigma = math.radians(sigma_deg)
     for _ in range(max_irls):
-        b = _residuals(q, data)
-        s_sq = torch.sum(b[:-1] ** 2, dim=-1)
-        w_pair = sigma ** 2 / (s_sq + sigma ** 2) ** 2
-        w = torch.cat([w_pair, torch.ones(1, dtype=dt, device=dev)])
-        rhs = _At_mv(w[:, None] * b, data, n)
-        step = _cg(w, rhs, data, n, torch.zeros((n, 3), dtype=dt, device=dev),
-                   200, syncs)
-        q = _update_rotations(q, step)
-        avg_step = torch.mean(torch.sqrt(torch.sum(step * step, dim=-1)))
-        if syncs.read("irls", avg_step < irls_conv):
+        with _dbg.span("ra.irls"):
+            b = _residuals(q, data)
+            s_sq = torch.sum(b[:-1] ** 2, dim=-1)
+            w_pair = sigma ** 2 / (s_sq + sigma ** 2) ** 2
+            w = torch.cat([w_pair, torch.ones(1, dtype=dt, device=dev)])
+            rhs = _At_mv(w[:, None] * b, data, n)
+            step = _cg(w, rhs, data, n,
+                       torch.zeros((n, 3), dtype=dt, device=dev), 200, syncs)
+            q = _update_rotations(q, step)
+            avg_step = torch.mean(torch.sqrt(torch.sum(step * step, dim=-1)))
+            done = syncs.read("irls", avg_step < irls_conv)
+        if done:
             break
     return q
 
@@ -275,7 +288,8 @@ def estimate_rotations(view_graph: ViewGraph, images: Images,
                        device="cuda") -> bool:
     """Full rotation-averaging stage; updates ``images.qvec`` in place."""
     dev = resolve_device(device)
-    _mst_init(view_graph, images)
+    with _dbg.span("ra.mst"):
+        _mst_init(view_graph, images)
 
     reg = images.registered
     reg_idx = np.nonzero(reg)[0]
@@ -303,11 +317,12 @@ def estimate_rotations(view_graph: ViewGraph, images: Images,
             float(l1_opts["rho"]), float(l1_opts["alpha"]),
             float(l1_opts["absolute_tolerance"]),
             float(l1_opts["relative_tolerance"]))
-    syncs = SyncCounter()
+    syncs = SyncCounter("ra")
     q = _ra_core(data, len(reg_idx), opts, syncs)
     _dbg.stat_add("ra_syncs", dict(syncs.counts))
     # under a process group every rank solves; all take rank 0's result
-    q, = multihost.broadcast_host_arrays(q.cpu().numpy().astype(np.float64))
+    q, = multihost.broadcast_host_arrays(
+        _dbg.read("ra.result", q).astype(np.float64))
     if not np.all(np.isfinite(q)):
         return False
     images.qvec[reg_idx] = q

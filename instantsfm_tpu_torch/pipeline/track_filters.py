@@ -1,6 +1,7 @@
 """Track filtering stages, batched on the host (counterpart of
 ``instantsfm_tpu/pipeline/track_filters.py``): each filter flattens the
-observations into one array pass."""
+observations into one array pass, and each is the span
+``track_filters.<name>`` (``utils/debug``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.scene import cameras as cam_models
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
+from instantsfm_tpu_torch.utils.debug import traced
 
 _EPS = 1e-10
 
@@ -26,6 +28,7 @@ def _obs_bearings(images: Images, tracks: Tracks):
                                              tracks.obs_feature)]
 
 
+@traced("track_filters.angle")
 def filter_tracks_by_angle(cameras: Cameras, images: Images, tracks: Tracks,
                            max_angle_error_deg: float) -> Tracks:
     """Drop observations whose viewing ray deviates from the bearing by more
@@ -41,6 +44,7 @@ def filter_tracks_by_angle(cameras: Cameras, images: Images, tracks: Tracks,
     return tracks.filter_observations(keep)
 
 
+@traced("track_filters.reprojection_normalized")
 def filter_tracks_by_reprojection_normalized(cameras: Cameras, images: Images,
                                              tracks: Tracks,
                                              max_reproj_error: float) -> Tracks:
@@ -57,6 +61,7 @@ def filter_tracks_by_reprojection_normalized(cameras: Cameras, images: Images,
     return tracks.filter_observations(keep)
 
 
+@traced("track_filters.reprojection")
 def filter_tracks_by_reprojection(cameras: Cameras, images: Images,
                                   tracks: Tracks,
                                   max_reproj_error_px: float) -> Tracks:
@@ -74,6 +79,7 @@ def filter_tracks_by_reprojection(cameras: Cameras, images: Images,
     return tracks.filter_observations(keep)
 
 
+@traced("track_filters.triangulation_angle")
 def filter_tracks_triangulation_angle(cameras: Cameras, images: Images,
                                       tracks: Tracks,
                                       min_angle_deg: float) -> Tracks:
@@ -116,6 +122,7 @@ def filter_tracks_triangulation_angle(cameras: Cameras, images: Images,
     return tracks.filter_tracks(keep)
 
 
+@traced("track_filters.normalize")
 def normalize_reconstruction(images: Images, tracks: Tracks, depths=None,
                              fixed_scale: bool = False, extent: float = 10.0,
                              p0: float = 0.1, p1: float = 0.9) -> None:

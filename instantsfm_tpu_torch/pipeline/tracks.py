@@ -14,7 +14,10 @@ Counterpart of ``instantsfm_tpu/pipeline/tracks.py``:
 * duplicate observations of one image keep the highest-count feature;
 * length filter [min_num_view_per_track, max_num_view_per_track] restricted
   to registered images.
-The rest is host numpy, as in the JAX package.
+The rest is host numpy, as in the JAX package.  Spans: ``tracks.prepare``
+(the match graph's edges), ``tracks.label`` (the components; its reads
+``tracks.jump``, ``tracks.stable`` and ``tracks.labels``) and
+``tracks.filter`` (the rest).
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import numpy as np
 import torch
 
 from instantsfm_tpu_torch.scene.types import Images, Tracks, ViewGraph
+from instantsfm_tpu_torch.utils import debug
 from instantsfm_tpu_torch.utils.device import resolve_device
 
 
+@debug.traced("tracks.label")
 def component_max_labels(e1: np.ndarray, e2: np.ndarray, n_nodes: int,
                          device="cuda") -> np.ndarray:
     """Label of each node = the largest node id of its connected component
@@ -45,32 +50,42 @@ def component_max_labels(e1: np.ndarray, e2: np.ndarray, n_nodes: int,
         new = lab.scatter_reduce(0, a, m, "amax").scatter_reduce(0, b, m, "amax")
         while True:
             jumped = new[new]
-            if torch.equal(jumped, new):
+            if debug.read("tracks.jump", torch.all(jumped == new)):
                 break
             new = jumped
-        if torch.equal(new, lab):
-            return lab.cpu().numpy()
+        if debug.read("tracks.stable", torch.all(new == lab)):
+            return debug.read("tracks.labels", lab)
         lab = new
 
 
 def establish_tracks(view_graph: ViewGraph, images: Images, opts: dict,
                      return_full: bool = False, device="cuda"):
-    mp = view_graph.match_pair_idx()
-    inl = view_graph.inlier_mask & view_graph.valid[mp]
-    if not inl.any():
-        return (Tracks.empty(), Tracks.empty()) if return_full else Tracks.empty()
-    pi = view_graph.pair_i[mp[inl]].astype(np.int64)
-    pj = view_graph.pair_j[mp[inl]].astype(np.int64)
-    f1 = view_graph.matches[inl, 0].astype(np.int64)
-    f2 = view_graph.matches[inl, 1].astype(np.int64)
+    with debug.span("tracks.prepare"):
+        mp = view_graph.match_pair_idx()
+        inl = view_graph.inlier_mask & view_graph.valid[mp]
+        if not inl.any():
+            return (Tracks.empty(), Tracks.empty()) if return_full \
+                else Tracks.empty()
+        pi = view_graph.pair_i[mp[inl]].astype(np.int64)
+        pj = view_graph.pair_j[mp[inl]].astype(np.int64)
+        f1 = view_graph.matches[inl, 0].astype(np.int64)
+        f2 = view_graph.matches[inl, 1].astype(np.int64)
 
-    # nodes are the global keypoint ids, already a dense 0..V-1 space;
-    # untouched keypoints become singleton components and are dropped below
-    e1 = images.kp_index(pi, f1)
-    e2 = images.kp_index(pj, f2)
-    V_all = int(images.kp_offset[-1])
+        # nodes are the global keypoint ids, already a dense 0..V-1 space;
+        # untouched keypoints become singleton components and are dropped
+        # below
+        e1 = images.kp_index(pi, f1)
+        e2 = images.kp_index(pj, f2)
+        V_all = int(images.kp_offset[-1])
     labels_all = component_max_labels(e1, e2, V_all, device)
+    return _filter_tracks(labels_all, e1, e2, V_all, images, opts,
+                          return_full)
 
+
+@debug.traced("tracks.filter")
+def _filter_tracks(labels_all, e1, e2, V_all, images, opts, return_full):
+    """Tracks from the components' labels: the consistency test, one
+    observation per (track, image) and the length filter."""
     counts_all = np.bincount(e1, minlength=V_all) \
         + np.bincount(e2, minlength=V_all)
     nodes = np.nonzero(counts_all)[0]              # touched keypoints only

@@ -10,7 +10,10 @@ Counterpart of ``instantsfm_tpu/pipeline/vgc.py``:
 
 The LM iterations run in blocks of ``VGC_BLOCK`` with the state frozen once
 the exit test fires (``utils/loops.py``); the damping retry loop inside an
-iteration reads its test before each retry, as it rarely runs.
+iteration reads its test before each retry, as it rarely runs.  Spans:
+``vgc.prepare`` (the coefficients), ``vgc.solve`` (the LM loop; its reads
+``vgc.vgc`` and ``vgc.vgc_retry``, counted in the stat ``vgc_syncs``, and
+the result's ``vgc.result``) and ``vgc.filter``.
 """
 
 from __future__ import annotations
@@ -168,7 +171,27 @@ def solve_view_graph_calibration(view_graph: ViewGraph, cameras: Cameras,
     rows = np.nonzero(mask)[0]
     if len(rows) == 0:
         return
+    ds, focals0, ci, cj = _prepare(view_graph, cameras, images, rows, dtype,
+                                   dev)
+    syncs = SyncCounter("vgc")
+    with _dbg.span("vgc.solve"):
+        f, pair_err_sq = _vgc_solve(
+            focals0, ds, ci, cj, num_cams=cameras.num_cameras,
+            max_iters=int(opts["max_num_iterations"]),
+            cauchy_thres=float(opts["thres_loss_function"]),
+            ftol=float(opts["function_tolerance"]), syncs=syncs)
+        _dbg.stat_add("vgc_syncs", dict(syncs.counts))
+        f, pair_err_sq = _dbg.read("vgc.result", (f, pair_err_sq))
+    # under a process group every rank solves; all take rank 0's result
+    f, pair_err_sq = multihost.broadcast_host_arrays(
+        f.astype(np.float64), pair_err_sq.astype(np.float64))
+    _filter(view_graph, cameras, rows, f, pair_err_sq, opts)
 
+
+@_dbg.traced("vgc.prepare")
+def _prepare(view_graph, cameras, images, rows, dtype, dev):
+    """The Fetzer coefficients of both directions of every pair, the start
+    focals and the pairs' cameras, on the device."""
     cam_i = images.cam_idx[view_graph.pair_i[rows]]
     cam_j = images.cam_idx[view_graph.pair_j[rows]]
     pp_i = np.stack([cameras.principal_point(c) for c in cam_i])
@@ -189,21 +212,14 @@ def solve_view_graph_calibration(view_graph: ViewGraph, cameras: Cameras,
 
     t = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a),
                                             device=dev).to(dt)
-    ds = _fetzer_ds(t(G_all))
     focals0 = np.array([cameras.focal(c) for c in range(cameras.num_cameras)])
-    syncs = SyncCounter()
-    f, pair_err_sq = _vgc_solve(
-        t(focals0), ds, t(ci, torch.int64), t(cj, torch.int64),
-        num_cams=cameras.num_cameras,
-        max_iters=int(opts["max_num_iterations"]),
-        cauchy_thres=float(opts["thres_loss_function"]),
-        ftol=float(opts["function_tolerance"]), syncs=syncs)
-    _dbg.stat_add("vgc_syncs", dict(syncs.counts))
-    # under a process group every rank solves; all take rank 0's result
-    f, pair_err_sq = multihost.broadcast_host_arrays(
-        f.cpu().numpy().astype(np.float64),
-        pair_err_sq.cpu().numpy().astype(np.float64))
+    return (_fetzer_ds(t(G_all)), t(focals0), t(ci, torch.int64),
+            t(cj, torch.int64))
 
+
+@_dbg.traced("vgc.filter")
+def _filter(view_graph, cameras, rows, f, pair_err_sq, opts):
+    """Focal rejection and the pairs' two-view error filter."""
     # ---- focal rejection
     for c in range(cameras.num_cameras):
         ratio = f[c] / max(cameras.focal(c), 1e-12)

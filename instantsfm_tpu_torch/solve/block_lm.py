@@ -16,9 +16,12 @@ Counterpart of ``instantsfm_tpu/solve/block_lm.py`` (its row-major path):
   acceptance on per-observation loss differences, lam / radius_down on
   reject (no upper clamp, as in the reference).
 
-Host synchronisations per LM step: one per PCG iteration plus one per PCG
-solve (the CG stop test), one per damped try (the accept test), and one per
-``optimize`` iteration (the history readback).
+Host reads (``utils/debug.read``) per LM step: one per PCG iteration plus
+one per PCG solve (the CG stop test, ``pcg.exit``), one per damped try (the
+accept test, ``lm.accept``), and one per ``optimize`` iteration (the history
+readback, ``lm.history``).  An LM step is the span ``lm.step``: the system
+build ``lm.build``, then per try the damped solve ``lm.solve`` (its PCG
+iterations ``pcg.iter``) and the candidate's loss ``lm.loss``.
 
 Across processes (``parallel/sharded.py``) each rank holds a slice of the
 observations and ``group`` is the process group, the counterpart of JAX's
@@ -479,6 +482,7 @@ def _sq_sum(group, replicated_points, a: Params, b: Params = None):
     return cam + _ar(pts + sc, group)
 
 
+@_dbg.traced("lm.step")
 def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
             cfg: LMConfig, state: LMState, obs: Observations,
             buckets: tuple = (), device="cuda", group=None,
@@ -496,9 +500,10 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
         raise ValueError("lm_step under a process group needs cfg.solver "
                          "'pcg' or 'dense', not 'auto'")
     params = state.params
-    sys = build_system(problem, params, obs, kernel,
-                       num_points=params.pts.shape[0], buckets=buckets,
-                       group=group, replicated_points=replicated_points)
+    with _dbg.span("lm.build"):
+        sys = build_system(problem, params, obs, kernel,
+                           num_points=params.pts.shape[0], buckets=buckets,
+                           group=group, replicated_points=replicated_points)
     dense = None if cfg.solver == "auto" else (cfg.solver == "dense")
     loss_old = sys.loss_vec
     plateau_tol = 0.1 * cfg.function_tolerance
@@ -508,19 +513,22 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
     while True:
         if k > 0:
             lam = lam / cfg.radius_down
-        d_cam, d_pt, d_s, _ = solve_damped(
-            problem, sys, obs, lam, cfg.pcg_iters, cfg.pcg_tol,
-            dense_schur=dense, buckets=buckets, group=group,
-            replicated_points=replicated_points)
-        cand = _apply_step(problem, params, d_cam, d_pt, d_s)
-        loss_new = compute_loss_vec(problem, cand, obs, kernel,
-                                    buckets=buckets)
-        dc = _ar(torch.sum(loss_new - loss_old), group)
+        with _dbg.span("lm.solve"):
+            d_cam, d_pt, d_s, _ = solve_damped(
+                problem, sys, obs, lam, cfg.pcg_iters, cfg.pcg_tol,
+                dense_schur=dense, buckets=buckets, group=group,
+                replicated_points=replicated_points)
+        with _dbg.span("lm.loss"):
+            cand = _apply_step(problem, params, d_cam, d_pt, d_s)
+            loss_new = compute_loss_vec(problem, cand, obs, kernel,
+                                        buckets=buckets)
+            dc = _ar(torch.sum(loss_new - loss_old), group)
         k += 1
         finite = torch.isfinite(dc)
         bad = ~finite | (dc > plateau_tol * sys.cost)
         accepted = finite & (dc <= 0)
-        bad_h, accepted_h = torch.stack([bad, accepted]).tolist()
+        bad_h, accepted_h = _dbg.read("lm.accept",
+                                      torch.stack([bad, accepted]))
         if not (bad_h and k <= cfg.max_rejects):
             break
     _dbg.stat_add("lm_tries", k)
@@ -592,13 +600,13 @@ def optimize(problem: BlockProblem, kernel: robust_mod.RobustKernel,
             print(f"  lm iter {it:3d}  loss {history[-1]:.9e}  lam {lam:.3e}")
 
     pending = None
-    t_loop = t_step = time.time()
+    t_step = time.perf_counter()
     for it in range(cfg.max_iterations):
         state = step(state, obs)
         # the readback waits for the step: host seconds per LM step
-        current = (it, *torch.stack([state.cost, state.lam, state.dcost,
-                                     state.rstep]).double().tolist())
-        now = time.time()
+        current = (it, *map(float, _dbg.read("lm.history", torch.stack(
+            [state.cost, state.lam, state.dcost, state.rstep]).double())))
+        now = time.perf_counter()
         _dbg.stat_add("lm_step_s", now - t_step)
         t_step = now
         if pending is not None:
@@ -608,8 +616,4 @@ def optimize(problem: BlockProblem, kernel: robust_mod.RobustKernel,
         pending = current
     if pending is not None and (not history or pending[0] > len(history) - 1):
         _append(pending)
-    if _dbg.ENABLED:
-        n = max(len(history), 1)
-        print(f"    [t] lm loop: {time.time() - t_loop:.2f}s ({n} iters, "
-              f"{(time.time() - t_loop) / n:.2f}s/iter)", flush=True)
     return state, history

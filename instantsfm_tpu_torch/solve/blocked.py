@@ -9,6 +9,8 @@ observations as one aligned group of L rows.
 ``bucketize`` (host numpy) reorders points so each bucket owns a contiguous
 point range and pads the observation arrays; the static ``buckets`` tuple
 ((obs_start, pt_start, num_tracks, L), ...) drives the per-bucket loops.
+``bucketize_problem`` reads its inputs back (``blocked.inputs``) and runs
+``bucketize`` in the span ``blocked.bucketize``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from instantsfm_tpu_torch.utils.debug import span
+from instantsfm_tpu_torch.utils.debug import read, span
 
 BUCKET_SIZES = (2, 4, 8, 16, 32, 64, 128, 256, 512)
 TRACK_PAD = 256     # default multiple of each bucket's padded track count
@@ -83,7 +85,7 @@ def bucketize(cam_idx, pt_idx, data, valid, scales, scales_free,
     # one global destination index per observation, then one fancy scatter
     # per attribute
     dest = np.empty(len(obs_order), np.int64)
-    for L in sorted(set(sorted_blen.tolist())):
+    for L in map(int, np.unique(sorted_blen)):
         sel_pts = np.nonzero(sorted_blen == L)[0]
         Tb_real = len(sel_pts)
         mult = track_pad or 1
@@ -145,16 +147,14 @@ def bucketize_problem(params, obs, track_pad: int = TRACK_PAD,
     """
     from instantsfm_tpu_torch.solve.block_lm import Observations
 
-    def host(t):
-        return t.detach().cpu().numpy()
-
     device, dtype = params.pts.device, params.pts.dtype
-    with span("bucketize host"):
-        bp = bucketize(host(obs.cam_idx), host(obs.pt_idx),
-                       {k: host(v) for k, v in obs.data.items()},
-                       host(obs.valid), host(params.scales),
-                       host(params.scales_free), params.pts.shape[0],
-                       track_pad=track_pad)
+    keys = list(obs.data)
+    cam_idx, pt_idx, valid, scales, scales_free, *data = read(
+        "blocked.inputs", (obs.cam_idx, obs.pt_idx, obs.valid, params.scales,
+                           params.scales_free, *(obs.data[k] for k in keys)))
+    with span("blocked.bucketize"):
+        bp = bucketize(cam_idx, pt_idx, dict(zip(keys, data)), valid, scales,
+                       scales_free, params.pts.shape[0], track_pad=track_pad)
 
     def dev(a, dt=None):
         return torch.as_tensor(a, device=device, dtype=dt)

@@ -41,24 +41,6 @@ def peak_host_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
-def count_syncs(fn):
-    """(result of ``fn()``, host synchronisations it made): CUDA's sync
-    debug mode warns at every operation that waits for the device (a
-    readback, ``.item()``, ``bool`` of a tensor), and the warnings are
-    counted.  The mode costs host time, so time no run made under it."""
-    import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    n = sum("synchroniz" in str(w.message) for w in caught)
-    return out, n
-
-
 def device_breakdown(step, n: int, top: int = 30):
     """``step()`` run ``n`` times under ``torch.profiler``: device self-time
     by kernel name divided by ``n``, largest first (``record_function``

@@ -14,20 +14,24 @@ from __future__ import annotations
 
 import torch
 
+from instantsfm_tpu_torch.utils import debug
+
 
 def _where(active, new, old):
     return tuple(torch.where(active, n, o) for n, o in zip(new, old))
 
 
 class SyncCounter:
-    """Host reads of loop conditions, per loop name."""
+    """Host reads of loop conditions, per loop name; each is a
+    ``debug.read`` at the site ``<prefix>.<name>``."""
 
-    def __init__(self):
+    def __init__(self, prefix: str):
+        self.prefix = prefix
         self.counts = {}
 
     def read(self, name: str, flag: torch.Tensor) -> bool:
         self.counts[name] = self.counts.get(name, 0) + 1
-        return bool(flag)
+        return bool(debug.read(f"{self.prefix}.{name}", flag))
 
     @property
     def total(self) -> int:
@@ -41,7 +45,7 @@ def while_blocked(cond, body, state: tuple, block: int,
     read of ``cond`` per block of ``block`` iterations (and one before the
     first block with ``check_first``, for loops that usually do not run).
     ``cond`` returns a 0-dim bool tensor; ``state`` is a tuple of tensors."""
-    syncs = syncs if syncs is not None else SyncCounter()
+    syncs = syncs if syncs is not None else SyncCounter("loop")
     if check_first and not syncs.read(name, cond(state)):
         return state
     while True:
