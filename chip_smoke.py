@@ -155,6 +155,7 @@ Phases (any failure exits non-zero):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -967,6 +968,9 @@ def run_ba(device):
     seconds = time.perf_counter() - t0
     launches = k1.schur_wchain.launches
     stats = debug.drain_stats()
+    # the rounds share one shape: the first step captures the PCG's graphs
+    capture_ms = [r["spans"].get("pcg.capture", (0, 0.0))[1] * 1e3
+                  for r in debug.REGISTRY.roots("ba.round")[-3:]]
 
     finite = all(np.all(np.isfinite(a)) for a in
                  (images.qvec, images.tvec, tracks.xyz, cameras.params))
@@ -980,7 +984,8 @@ def run_ba(device):
                pcg_iters_total=sum(pcg_iters), pcg_solves=len(pcg_iters),
                pcg_iters_per_solve=pcg_iters,
                ms_per_lm_step=seconds * 1e3 / max(lm_steps, 1),
-               first_step_ms=step_ms[0],
+               first_step_ms=step_ms[0] - capture_ms[0],
+               capture_ms_per_round=capture_ms,
                median_later_step_ms=float(np.median(step_ms[1:])),
                step_ms=step_ms,
                k1_launches=launches,
@@ -1049,7 +1054,11 @@ def run_gp_step(device, gt):
     launches = k1.schur_wchain.launches
     stats = debug.drain_stats()
     cost1 = float(state.cost)
-    rec = dict(ms=ms, rows=int(obs.valid.shape[0]), k1_launches=launches,
+    # a new shape: the step captured its PCG's graphs, timed apart
+    capture_ms = debug.REGISTRY.roots("lm.step")[-1]["spans"].get(
+        "pcg.capture", (0, 0.0))[1] * 1e3
+    rec = dict(ms=ms - capture_ms, capture_ms=capture_ms,
+               rows=int(obs.valid.shape[0]), k1_launches=launches,
                pcg_iters=stats["pcg_iters"], damped_solves=stats["lm_tries"],
                cost_before=cost0, cost_after=cost1)
     log("GP " + json.dumps(rec))
@@ -1174,30 +1183,16 @@ def run_sfm(device, root, profile=False):
         f"{SFM_WINDOW}: {n_pairs} pairs, {n_matches} matches "
         f"({build_db_s:.1f} s to write)")
 
-    launches_at, k1_inputs_at = {}, {}
+    done, k1_inputs_at, by_stage = set(), {}, {}
 
     def hook(name, *_):
-        launches_at[name] = k1.schur_wchain.launches
-
-    launch = block_lm.schur_wchain
-
-    def keep_first_input(*args):
-        # K1 runs only in GP and BA: before GP's hook, a call is GP's.
-        # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
-        stage = ("bundle_adjustment" if "global_positioning" in launches_at
-                 else "global_positioning")
-        if stage not in k1_inputs_at and bool(args[2].any()):
-            k1_inputs_at[stage] = tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args)
-        return launch(*args)
+        done.add(name)
 
     out = os.path.join(root, "sparse")
-    block_lm.schur_wchain = keep_first_input
-    try:
+    with k1_by_stage(done, k1_inputs_at, by_stage) as shapes:
         pipe, _, images, _ = run_pipeline(dbpath, out, device,
                                           stage_hook=hook)
-    finally:
-        block_lm.schur_wchain = launch
+    graphs = pcg_graphs(debug.REGISTRY.roots("mapper")[-1], shapes)
     t0 = time.perf_counter()
     cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(out, "0"))
     read_model_s = time.perf_counter() - t0
@@ -1220,7 +1215,9 @@ def run_sfm(device, root, profile=False):
             "max_abs_err"),
         k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
             "max_abs_err"),
-        k1_on_mapper_inputs=k1_sfm, relpose_profile=relpose_prof,
+        k1_on_mapper_inputs=k1_sfm, k1_launches_by_stage=by_stage,
+        pcg_graphs=graphs,
+        relpose_profile=relpose_prof,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
         card=card_line())
@@ -1257,37 +1254,29 @@ def run_sfm_retri(device, dbpath, gt):
     def hook(name, *_):
         launches_at[name] = k1.schur_wchain.launches
 
-    launch = block_lm.schur_wchain
+    in_retri = lambda: "bundle_adjustment" in launches_at
 
     def keep_pc2_input(*args):
-        PC = args[0].shape[1]
-        in_retri = "bundle_adjustment" in launches_at
-        if in_retri and PC == 2 and not retri_input and bool(args[2].any()):
+        if (in_retri() and args[0].shape[1] == 2 and not retri_input
+                and bool(args[2].any())):
             retri_input["args"] = tuple(
                 a.clone() if torch.is_tensor(a) else a for a in args)
-        before = k1.schur_wchain.launches
-        out = launch(*args)
-        if in_retri:
-            retri_by_pc[PC] = (retri_by_pc.get(PC, 0)
-                               + k1.schur_wchain.launches - before)
-        return out
 
     cfg = Config("colmap")
     cfg.OPTIONS.update(skip_retriangulation=False, skip_pruning=False)
     debug.drain_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_lm.schur_wchain = keep_pc2_input
     k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
-    try:
+    with k1_tally(lambda W, C: W.shape[1] if in_retri() else None,
+                  retri_by_pc, keep_pc2_input) as shapes:
         t0 = time.perf_counter()
         view_graph, cameras, images, feature_name = read_colmap_database(dbpath)
         cameras, images, tracks, timings = solve_global_mapper(
             view_graph, cameras, images, cfg, dtype=torch.float32,
             log=lambda *a: None, stage_hook=hook, device=device)
         total_s = time.perf_counter() - t0
-    finally:
-        block_lm.schur_wchain = launch
+    graphs = pcg_graphs(debug.REGISTRY.roots("mapper")[-1], shapes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = k1.schur_wchain.launches
     plain_calls = k1.schur_wchain.plain_calls
@@ -1316,7 +1305,7 @@ def run_sfm_retri(device, dbpath, gt):
         k1_launches_gp=gp, k1_launches_ba=ba_ - gp,
         k1_launches_retri=retri - ba_, k1_launches_retri_by_pc=retri_by_pc,
         k1_launches_total=launches, k1_plain_calls=plain_calls,
-        k1_on_retri_pc2_input=k1_pc2,
+        k1_on_retri_pc2_input=k1_pc2, pcg_graphs=graphs,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
         card=card_line())
@@ -1387,30 +1376,90 @@ def write_ring_gt_model(path, gt):
     cmio.write_model(cams, imgs, [], path)
 
 
-def k1_stage_spy(done, first_input, launches):
-    """(``block_lm.schur_wchain``, a wrapper for it) for a mapper run: the
-    wrapper counts K1's launches by stage and camera-sum branch into
-    ``launches`` and keeps each stage's first input whose x is not 0 in
-    ``first_input``.  K1 runs only in GP and BA: a call made before
-    ``done`` holds "global_positioning" (the stage hook's names) is GP's."""
-    launch = block_lm.schur_wchain
+def capturing(t) -> bool:
+    """Whether ``t``'s device is a CUDA device whose current stream is
+    recording a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def k1_tally(key_of, launches, keep=None):
+    """Counts K1's launches by solve into ``launches`` while the block runs,
+    with ``block_lm.schur_wchain`` and ``block_lm.graph_pcg`` wrapped.
+    ``key_of(W, C)`` names a solve from its K1 operand W and its camera
+    count (None: not counted).  On one card a solve replays captured CUDA
+    graphs (``solve/pcg.py``), whose K1 launches call no wrapper, so a
+    key's count runs from K1's counter at the start of a graph solve, or at
+    a call of the wrapper (the eager loop, a capture's warm-up), to the
+    next such point.  ``keep(*args)``, where given, sees every input that
+    reaches the wrapper outside a capture.  Yields the set of the graph
+    solves' shapes (C, PC, rows)."""
+    launch, solve = block_lm.schur_wchain, block_lm.graph_pcg
+    mark = dict(key=None, at=k1.schur_wchain.launches)
+    shapes = set()
+
+    def settle(key):
+        now = k1.schur_wchain.launches
+        if mark["key"] is not None:
+            launches[mark["key"]] = (launches.get(mark["key"], 0) + now
+                                     - mark["at"])
+        mark.update(key=key, at=now)
 
     def spy(*args):
+        if not capturing(args[0]):
+            if keep is not None:
+                keep(*args)
+            settle(key_of(args[0], args[2].shape[0]))
+        return launch(*args)
+
+    def solve_spy(make_ops, layout, operands, b, **kwargs):
+        W = operands[1]
+        shapes.add((b.shape[0], W.shape[1], W.shape[0]))
+        settle(key_of(W, b.shape[0]))
+        return solve(make_ops, layout, operands, b, **kwargs)
+
+    block_lm.schur_wchain, block_lm.graph_pcg = spy, solve_spy
+    try:
+        yield shapes
+    finally:
+        block_lm.schur_wchain, block_lm.graph_pcg = launch, solve
+        settle(None)
+
+
+@contextlib.contextmanager
+def k1_by_stage(done, first_input, launches):
+    """``k1_tally`` for a mapper run: K1's launches by stage and
+    camera-sum branch into ``launches``, and each stage's first input whose
+    x is not 0 into ``first_input``.  K1 runs only in GP and BA: a solve
+    started before ``done`` holds "global_positioning" (the stage hook's
+    names) is GP's.  Yields the graph solves' shapes."""
+    stage = lambda: ("bundle_adjustment" if "global_positioning" in done
+                     else "global_positioning")
+
+    def key_of(W, C):
+        branch = "shared" if k1.shared_table(C, W.shape[1], W.dtype) \
+            else "global"
+        return f"{stage()}/{branch}"
+
+    def keep(*args):
         # PCG's first matvec is of x0 = 0, whose y is 0 whatever K1 does
-        stage = ("bundle_adjustment" if "global_positioning" in done
-                 else "global_positioning")
-        if stage not in first_input and bool(args[2].any()):
-            first_input[stage] = tuple(
+        if stage() not in first_input and bool(args[2].any()):
+            first_input[stage()] = tuple(
                 a.clone() if torch.is_tensor(a) else a for a in args)
-        branch = ("shared" if k1.shared_table(args[2].shape[0],
-                                              args[0].shape[1], args[0].dtype)
-                  else "global")
-        before = k1.schur_wchain.launches
-        out = launch(*args)
-        key = f"{stage}/{branch}"
-        launches[key] = launches.get(key, 0) + k1.schur_wchain.launches - before
-        return out
-    return launch, spy
+
+    with k1_tally(key_of, launches, keep) as shapes:
+        yield shapes
+
+
+def pcg_graphs(root, shapes):
+    """The PCG's CUDA graphs in a root record of ``debug``'s ring: graph
+    solves, captures and their seconds, replays, and the distinct shapes
+    (``k1_tally``'s) the solves had."""
+    spans = root["spans"]
+    n = lambda name: spans.get(name, (0, 0.0))
+    return dict(solves=n("pcg.graph")[0], captures=n("pcg.capture")[0],
+                capture_s=n("pcg.capture")[1], replays=n("pcg.replay")[0],
+                shapes=len(shapes))
 
 
 def run_scale(device, root, scene=SCALE_2K):
@@ -1435,7 +1484,6 @@ def run_scale(device, root, scene=SCALE_2K):
 
     done, first_input, launches, errors_at, rounds = set(), {}, {}, {}, []
     gp_images = {}
-    launch, k1_spy = k1_stage_spy(done, first_input, launches)
 
     def hook(name, cameras, images, tracks):
         done.add(name)
@@ -1458,12 +1506,14 @@ def run_scale(device, root, scene=SCALE_2K):
         return state, history
 
     sparse = os.path.join(root, "sparse")
-    block_lm.schur_wchain, ba.optimize = k1_spy, ba_round
+    ba.optimize = ba_round
     try:
-        pipe, _, images, tracks = run_pipeline(dbpath, sparse, device,
-                                               stage_hook=hook)
+        with k1_by_stage(done, first_input, launches) as shapes:
+            pipe, _, images, tracks = run_pipeline(dbpath, sparse, device,
+                                                   stage_hook=hook)
     finally:
-        block_lm.schur_wchain, ba.optimize = launch, ba_optimize
+        ba.optimize = ba_optimize
+    graphs = pcg_graphs(debug.REGISTRY.roots("mapper")[-1], shapes)
     t0 = time.perf_counter()
     cams_m, imgs_m, pts_m = cmio.read_model(os.path.join(sparse, "0"))
     read_model_s = time.perf_counter() - t0
@@ -1489,7 +1539,7 @@ def run_scale(device, root, scene=SCALE_2K):
         pipe, scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
         read_model_s=read_model_s, eval_s=eval_s,
         model_images=len(imgs_m), model_points=len(pts_m),
-        k1_launches=launches, k1=k1_rec,
+        k1_launches=launches, k1=k1_rec, pcg_graphs=graphs,
         rot_err_deg_mean=float(rot.mean()), rot_err_deg_max=float(rot.max()),
         ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()),
         errors_by_stage=errors_at, eval=scores, card=card_line())

@@ -16,12 +16,15 @@ Counterpart of ``instantsfm_tpu/solve/block_lm.py`` (its row-major path):
   acceptance on per-observation loss differences, lam / radius_down on
   reject (no upper clamp, as in the reference).
 
-Host reads (``utils/debug.read``) per LM step: one per PCG iteration plus
-one per PCG solve (the CG stop test, ``pcg.exit``), one per damped try (the
-accept test, ``lm.accept``), and one per ``optimize`` iteration (the history
-readback, ``lm.history``).  An LM step is the span ``lm.step``: the system
-build ``lm.build``, then per try the damped solve ``lm.solve`` (its PCG
-iterations ``pcg.iter``) and the candidate's loss ``lm.loss``.
+Host reads (``utils/debug.read``) per LM step: the CG stop tests
+(``pcg.exit``: on one CUDA device one per replay of a block of
+``pcg.BLOCK`` iterations, else one per PCG iteration plus one per solve),
+one per damped try (the accept test, ``lm.accept``), and one per
+``optimize`` iteration (the history readback, ``lm.history``).  An LM step
+is the span ``lm.step``: the system build ``lm.build``, then per try the
+damped solve ``lm.solve`` (its PCG: ``pcg.graph`` with its replays
+``pcg.replay``, or the iterations ``pcg.iter``) and the candidate's loss
+``lm.loss``.
 
 Across processes (``parallel/sharded.py``) each rank holds a slice of the
 observations and ``group`` is the process group, the counterpart of JAX's
@@ -47,8 +50,8 @@ from torch.func import jacfwd, vmap
 
 from instantsfm_tpu_torch.solve import robust as robust_mod
 from instantsfm_tpu_torch.solve.blocked import gather_pt, seg_by_pt
-from instantsfm_tpu_torch.solve.pcg import pcg
-from instantsfm_tpu_torch.solve.schur_wchain import schur_wchain
+from instantsfm_tpu_torch.solve.pcg import graph_pcg, pcg
+from instantsfm_tpu_torch.solve.schur_wchain import recorded, schur_wchain
 from instantsfm_tpu_torch.utils import debug as _dbg
 from instantsfm_tpu_torch.utils.device import check_on_device, full_f32
 
@@ -303,6 +306,22 @@ def schur_matvec_replicated(U_d, W, V_inv, cam_idx, pt_idx, group, x):
     return _mv(U_d, x) - _ar(_seg_by_cam(u, cam_idx, x.shape[0]), group)
 
 
+def pcg_on_graph(device, group=None, replicated_points=False) -> bool:
+    """Whether the reduced-camera PCG runs as captured CUDA graphs
+    (``pcg.graph_pcg``): on a CUDA device with no process group.  Under a
+    group the matvec all-reduces, and the eager loop (``pcg.pcg``) runs."""
+    return (torch.device(device).type == "cuda" and group is None
+            and not replicated_points)
+
+
+def _schur_ops(buckets, U_d, W, V_inv, cam_idx, pt_idx, D_inv):
+    """(matvec, precond, recorded) of the single-device reduced-camera
+    system for ``pcg.graph_pcg``: the Schur operator, the block-Jacobi
+    preconditioner, and K1's count of the launches a replay runs."""
+    return (partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx, buckets),
+            lambda v: _mv(D_inv, v), recorded)
+
+
 def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                  lam, pcg_iters: int = 100, pcg_tol: float = 1e-5,
                  eps: float = 1e-8, dense_schur: Optional[bool] = None,
@@ -399,14 +418,19 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         D = D + eps * torch.eye(PC, dtype=D.dtype, device=D.device)
         D_inv = torch.linalg.inv(D)
 
-        if replicated_points:
-            matvec = partial(schur_matvec_replicated, U_d, W, V_inv, cam_idx,
-                             pt_idx, group)
+        if pcg_on_graph(W.device, group, replicated_points):
+            d_cam, iters = graph_pcg(_schur_ops, buckets,
+                                     (U_d, W, V_inv, cam_idx, pt_idx, D_inv),
+                                     rhs, max_iters=pcg_iters, tol=pcg_tol)
         else:
-            matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx,
-                             buckets, group=group)
-        d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
-                              max_iters=pcg_iters, tol=pcg_tol)
+            if replicated_points:
+                matvec = partial(schur_matvec_replicated, U_d, W, V_inv,
+                                 cam_idx, pt_idx, group)
+            else:
+                matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx,
+                                 pt_idx, buckets, group=group)
+            d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
+                                  max_iters=pcg_iters, tol=pcg_tol)
         _dbg.stat_add("pcg_iters", iters)
 
     # back-substitute points: d_pt = V^-1 (g_pt - W^T d_cam)

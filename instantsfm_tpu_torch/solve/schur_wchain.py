@@ -28,6 +28,7 @@ build or launch raises.
 from __future__ import annotations
 
 import ctypes
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -174,7 +175,7 @@ def _launch(W, V_inv, x, cam_idx, buckets):
     if err != 0:
         raise RuntimeError("schur_wchain kernel launch failed: "
                            + lib.schur_wchain_error_string(err).decode())
-    schur_wchain.launches += 1
+    _count("launches")
     return y
 
 
@@ -186,17 +187,45 @@ def schur_wchain(W, V_inv, x, cam_idx, pt_idx, buckets):
     the CUDA kernel (counted in ``schur_wchain.launches``), which requires
     ``buckets`` and finds each row's point slot from them (``pt_idx`` is
     not read).  CUDA tensors with PC > 8: ``schur_wchain_reference`` on the
-    card, counted in ``schur_wchain.plain_calls``."""
+    card, counted in ``schur_wchain.plain_calls``.  A call that a CUDA graph
+    records is counted at each replay (``recorded``)."""
     if W.device.type == "cpu":
         return schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
     if W.device.type != "cuda":
         raise ValueError(f"schur_wchain: unsupported device {W.device}")
     if W.shape[1] > MAX_PC:
-        schur_wchain.plain_calls += 1
+        _count("plain_calls")
         return schur_wchain_reference(W, V_inv, x, cam_idx, pt_idx, buckets)
     return _launch(W.contiguous(), V_inv.contiguous(), x.contiguous(),
                    cam_idx.contiguous(), buckets)
 
 
-schur_wchain.launches = 0      # kernel launches
+schur_wchain.launches = 0      # kernel launches run
 schur_wchain.plain_calls = 0   # PC > 8 on the card: the plain version
+
+# calls recorded into CUDA graphs, by counter: ``recorded`` turns them into
+# runs at each replay
+_captured = dict(launches=0, plain_calls=0)
+
+
+def _count(name: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        _captured[name] += 1
+    else:
+        setattr(schur_wchain, name, getattr(schur_wchain, name) + 1)
+
+
+@contextmanager
+def recorded():
+    """Around a CUDA graph's capture: yields ``replayed()``, which adds
+    the calls the capture recorded to ``schur_wchain.launches`` and
+    ``plain_calls``.  The graph's owner calls it after each replay, which
+    runs them again."""
+    start, n = dict(_captured), {}
+
+    def replayed():
+        for name, k in n.items():
+            setattr(schur_wchain, name, getattr(schur_wchain, name) + k)
+
+    yield replayed
+    n.update((name, _captured[name] - start[name]) for name in _captured)

@@ -9,6 +9,8 @@ each block's largest entry: sums in another order).  lm_step: cost rtol
 JAX paths to each other (PCG stops on a residual test, so summation order
 moves the iterate slightly)."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,11 @@ from instantsfm_tpu.solve import robust as jrobust
 from instantsfm_tpu.solve.blocked import bucketize_problem
 from instantsfm_tpu_torch import convert
 from instantsfm_tpu_torch.solve import block_lm as tbl
+from instantsfm_tpu_torch.solve import pcg as tpcg
 from instantsfm_tpu_torch.solve import problems as tproblems
 from instantsfm_tpu_torch.solve import robust as trobust
 from instantsfm_tpu_torch.solve.pcg import pcg
+from instantsfm_tpu_torch.utils import debug
 from tests.synthetic import make_scene
 from tests.test_block_lm import _ba_setup
 from tests.test_sharded import _gp_setup
@@ -68,6 +72,95 @@ def test_pcg_solves_spd_system(rng):
                         tol=1e-10)
     np.testing.assert_allclose(x.numpy(), np.linalg.solve(A, b), atol=1e-6)
     assert isinstance(iters, int) and 0 < iters <= 200
+
+
+def _blocked_pcg(matvec, b, precond, max_iters, tol, block):
+    """The predicated iteration run eagerly in blocks of ``block``, as the
+    CUDA graphs replay it: (x, iters, pcg.exit reads)."""
+    st = tpcg.pcg_state(b)
+    run = partial(tpcg.pcg_block, matvec, precond, st, max_iters, n=block)
+
+    def first():
+        tpcg.pcg_start(matvec, precond, b, st, max_iters, tol)
+        run()
+
+    with debug.span("test.pcg_blocks"):
+        iters = tpcg.run_blocks(first, run, st.status)
+    reads = debug.REGISTRY.roots("test.pcg_blocks")[-1]["reads"]["pcg.exit"]
+    return st.x, iters, reads[0]
+
+
+def _spd_case(n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    A = torch.tensor(A @ A.T + np.eye(n), dtype=dtype)
+    D_inv = torch.diag(1.0 / torch.diagonal(A))
+    b = torch.tensor(rng.standard_normal(n), dtype=dtype)
+    return (lambda v: A @ v), b, (lambda v: D_inv @ v)
+
+
+def _schur_case(monkeypatch):
+    """The Schur operator, preconditioner and right-hand side that a damped
+    solve of a small bucketed BA problem hands its PCG (K1's plain
+    version)."""
+    _, tproblem, _, _, tparams, tobs, buckets = _setup("ba", noise=0.5)
+    sys = tbl.build_system(tproblem, tparams, tobs, trobust.huber(1.0),
+                           tparams.pts.shape[0], buckets=buckets)
+    seen = {}
+
+    def spy(matvec, b, precond, **kw):
+        seen.update(matvec=matvec, b=b, precond=precond)
+        return pcg(matvec, b, precond, **kw)
+
+    monkeypatch.setattr(tbl, "pcg", spy)
+    tbl.solve_damped(tproblem, sys, tobs, torch.tensor(1e-4, dtype=F64),
+                     dense_schur=False, buckets=buckets)
+    return seen["matvec"], seen["b"], seen["precond"]
+
+
+@pytest.mark.parametrize("case,block,max_iters,tol,mid_block", [
+    ("spd_f64", 4, 200, 1e-10, True),
+    ("spd_f32", 4, 200, 1e-5, True),
+    ("max_iters", 4, 10, 0.0, True),      # 10 is no multiple of 4
+    ("zero_rhs", 4, 100, 1e-5, False),
+    ("ba_schur", 4, 100, 1e-8, True),
+    ("ba_schur_block8", 8, 100, 1e-8, True),
+])
+def test_pcg_blocks_match_loop(case, block, max_iters, tol, mid_block,
+                               monkeypatch):
+    """The predicated iteration in blocks (what the CUDA graphs record)
+    against the eager loop: the same iteration count, x bit for bit, and
+    one read a block."""
+    if case.startswith("ba_schur"):
+        matvec, b, precond = _schur_case(monkeypatch)
+    else:
+        dtype = torch.float32 if case == "spd_f32" else F64
+        matvec, b, precond = _spd_case(40, dtype, seed=7)
+        if case == "zero_rhs":
+            b = torch.zeros_like(b)
+    x_loop, _, it_loop = pcg(matvec, b, precond, max_iters=max_iters,
+                             tol=tol)
+    x, iters, reads = _blocked_pcg(matvec, b, precond, max_iters, tol, block)
+    assert iters == it_loop
+    assert (iters % block != 0) == mid_block, iters
+    assert torch.equal(x, x_loop)
+    assert reads == max(1, -(-iters // block))
+    if case == "zero_rhs":
+        assert iters == 0
+    if case == "max_iters":
+        assert iters == max_iters
+
+
+def test_pcg_graph_path_only_on_one_cuda_device():
+    """The reduced-camera PCG is captured only on a CUDA device with no
+    process group; the CPU and the multi-process paths keep the loop."""
+    assert tbl.pcg_on_graph(torch.device("cuda"))
+    assert tbl.pcg_on_graph("cuda:1", None, False)
+    assert not tbl.pcg_on_graph(torch.device("cpu"))
+    assert not tbl.pcg_on_graph("cuda", group=object())
+    assert not tbl.pcg_on_graph("cuda", group=object(),
+                                replicated_points=True)
+    assert not tbl.pcg_on_graph("cuda", None, replicated_points=True)
 
 
 @pytest.mark.parametrize("name,arg", [("trivial", None), ("huber", 1.0),

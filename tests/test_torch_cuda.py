@@ -214,6 +214,115 @@ def test_bundle_adjustment_past_pc8_card_matches_cpu():
     np.testing.assert_allclose(img_g.tvec, img_c.tvec, atol=4e-6)
 
 
+def _damped_inputs(kind, dtype):
+    """(problem, system, observations, buckets) of a bucketed problem on
+    the card: BA on a 20-camera, 9,000-point scene (K1 at PC = 8) or GP
+    with its scales (K1 at PC = 3), 40 cameras and 3,000 tracks of 6."""
+    from instantsfm_tpu_torch.solve import block_lm, robust
+    from instantsfm_tpu_torch.solve.blocked import bucketize_problem
+    from instantsfm_tpu_torch.solve.problems import (make_ba_problem,
+                                                     make_gp_problem)
+    if kind == "ba":
+        import chip_smoke
+        cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                           num_pts=9000)
+        params, obs = chip_smoke.scene_problem(cameras, images, tracks,
+                                               dtype, "cuda")
+        problem = make_ba_problem(cameras.uniform_model_id)
+        kernel = robust.huber(1.0)
+    else:
+        rng = np.random.default_rng(0)
+        C, T, per = 40, 3000, 6
+        O = T * per
+        d = rng.standard_normal((O, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = lambda a: torch.as_tensor(np.asarray(a), device="cuda").to(dtype)
+        params = block_lm.Params(
+            cam={"c": t(rng.uniform(-1, 1, (C, 3)))},
+            pts=t(rng.uniform(-1, 1, (T, 3))), scales=t(np.ones((O, 1))),
+            scales_free=torch.ones(O, dtype=torch.bool, device="cuda"))
+        obs = block_lm.Observations(
+            torch.as_tensor(rng.integers(0, C, O).astype(np.int32),
+                            device="cuda"),
+            torch.as_tensor(np.repeat(np.arange(T, dtype=np.int32), per),
+                            device="cuda"),
+            {"tx": t(d[:, 0]), "ty": t(d[:, 1]), "tz": t(d[:, 2]),
+             "w": t(np.ones(O))},
+            torch.ones(O, dtype=torch.bool, device="cuda"))
+        problem, kernel = make_gp_problem(), robust.huber(0.1)
+    params, obs, buckets, _ = bucketize_problem(params, obs)
+    system = block_lm.build_system(problem, params, obs, kernel,
+                                   params.pts.shape[0], buckets=buckets)
+    return problem, system, obs, buckets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ba", "gp"])
+def test_pcg_graph_matches_eager_loop(kind, monkeypatch):
+    """The damped solve's PCG on CUDA graphs against the eager loop on the
+    operator and right-hand side it was handed, float64: the iteration
+    counts within one (K1's atomics sum in an order that changes from run
+    to run), d_cam within 1e-6, K1 launched.  The tolerance 1e-10 keeps an
+    iteration more or less far under 1e-6."""
+    _need_card()
+    from instantsfm_tpu_torch.solve import block_lm, pcg
+
+    problem, system, obs, buckets = _damped_inputs(kind, torch.float64)
+    seen = {}
+
+    def spy(make_ops, layout, operands, b, **kw):
+        seen.update(ops=make_ops(layout, *operands), b=b, kw=kw)
+        return pcg.graph_pcg(make_ops, layout, operands, b, **kw)
+
+    monkeypatch.setattr(block_lm, "graph_pcg", spy)
+    launches = k1.schur_wchain.launches
+    lam = torch.tensor(1e-4, dtype=torch.float64, device="cuda")
+    d_cam, _, _, iters = block_lm.solve_damped(
+        problem, system, obs, lam, pcg_iters=200, pcg_tol=1e-10,
+        dense_schur=False, buckets=buckets)
+    assert k1.schur_wchain.launches > launches and seen
+    matvec, precond, _ = seen["ops"]
+    x, _, loop_iters = pcg.pcg(matvec, seen["b"], precond, **seen["kw"])
+    assert iters > pcg.BLOCK and abs(iters - loop_iters) <= 1
+    np.testing.assert_allclose(d_cam.cpu().numpy(), x.cpu().numpy(),
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pcg_graph_captures_once_and_counts_k1_replays():
+    """Two damped solves of one shape: the first captures (its warm-up runs
+    K1 twice), the second replays only; one read a replay, and K1's
+    counter grows by the set-up's launch and ``BLOCK`` a replay."""
+    _need_card()
+    from instantsfm_tpu_torch.solve import block_lm, pcg
+    from instantsfm_tpu_torch.utils import debug
+
+    problem, system, obs, buckets = _damped_inputs("ba", torch.float32)
+    lam = torch.tensor(1e-4, dtype=torch.float32, device="cuda")
+    pcg._GRAPHS.clear()
+
+    def solve():
+        before = k1.schur_wchain.launches
+        with debug.span("test.solve"):
+            iters = block_lm.solve_damped(problem, system, obs, lam,
+                                          dense_schur=False,
+                                          buckets=buckets)[3]
+        rec = debug.REGISTRY.roots("test.solve")[-1]
+        return iters, rec["spans"], rec["reads"], \
+            k1.schur_wchain.launches - before
+
+    it1, spans1, reads1, n1 = solve()
+    it2, spans2, reads2, n2 = solve()
+    assert spans1["pcg.capture"][0] == 1 and "pcg.capture" not in spans2
+    assert spans1["pcg.graph"][0] == spans2["pcg.graph"][0] == 1
+    for it, spans, reads, n, warm in ((it1, spans1, reads1, n1, 2),
+                                      (it2, spans2, reads2, n2, 0)):
+        replays = spans["pcg.replay"][0]
+        assert reads["pcg.exit"][0] == replays == max(1, -(-it // pcg.BLOCK))
+        assert n == warm + 1 + pcg.BLOCK * replays
+    assert "pcg.iter" not in spans2
+
+
 def _rel_close(got, want, rel):
     scale = max(want.abs().max().item(), 1e-30)
     torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)

@@ -216,3 +216,28 @@ def test_launch_table_rejects_bad_layouts():
         k1.launch_table(((0, 0, 4, 1),))
     with pytest.raises(ValueError):
         k1.launch_table(tuple((i, i, 1, 2) for i in range(k1.MAX_BUCKETS + 1)))
+
+
+def test_calls_recorded_into_a_graph_count_at_each_replay(monkeypatch):
+    """A call made while a CUDA graph records counts once a replay of the
+    graph runs it (``recorded`` around the capture, its ``replayed`` after
+    each replay), not at the capture; an eager call counts at once."""
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    monkeypatch.setattr(k1.schur_wchain, "launches", 0)
+    monkeypatch.setattr(k1.schur_wchain, "plain_calls", 0)
+    k1._count("launches")
+    with k1.recorded() as replayed:
+        capturing[0] = True
+        for _ in range(3):
+            k1._count("launches")
+        k1._count("plain_calls")
+        capturing[0] = False
+    with k1.recorded() as replayed_other:
+        pass
+    assert (k1.schur_wchain.launches, k1.schur_wchain.plain_calls) == (1, 0)
+    replayed()
+    replayed()
+    replayed_other()
+    assert (k1.schur_wchain.launches, k1.schur_wchain.plain_calls) == (7, 2)

@@ -66,7 +66,6 @@ from instantsfm_tpu_torch.features import handler
 from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.parallel import multihost
 from instantsfm_tpu_torch.pipeline import mapper
-from instantsfm_tpu_torch.solve import block_lm
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.utils import bench, build, debug
 
@@ -161,7 +160,6 @@ def sfm_cli(data_path):
         done.add(name)
         marks[name] = len(debug.STATS.get("pcg_iters", ()))
 
-    launch, k1_spy = cs.k1_stage_spy(done, first_input, launches)
     solve = mapper.solve_global_mapper
 
     def solve_spy(*args, **kwargs):
@@ -171,14 +169,15 @@ def sfm_cli(data_path):
     debug.drain_stats()
     reset_peak()
     k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
-    block_lm.schur_wchain, mapper.solve_global_mapper = k1_spy, solve_spy
+    mapper.solve_global_mapper = solve_spy
     t0 = time.perf_counter()
     try:
-        rc = cli_sfm.main(["--data_path", data_path, "--device", "cuda",
-                           "--f32"])
-        torch.cuda.synchronize()
+        with cs.k1_by_stage(done, first_input, launches):
+            rc = cli_sfm.main(["--data_path", data_path, "--device", "cuda",
+                               "--f32"])
+            torch.cuda.synchronize()
     finally:
-        block_lm.schur_wchain, mapper.solve_global_mapper = launch, solve
+        mapper.solve_global_mapper = solve
     total_s = time.perf_counter() - t0
     stats = debug.drain_stats()
     pcg = stats.get("pcg_iters", [])
