@@ -39,39 +39,40 @@ from instantsfm_tpu_torch.utils import bench, roofline
 from instantsfm_tpu_torch.utils.device import full_f32
 
 G, W, H = 100_000, 800, 608
-SH_DEGREE, TILES_PER_GAUSS, TILE_CAPACITY = 3, 16, 512
+SH_DEGREE = 3
 N_WARM, N = 3, 20
 # the step's profiler scopes -> (forward, backward) part of the count, and
 # the compositing kernels by name (bench.time_by_scope)
-PART_SCOPES = {"gs:projection": ("projection_fwd", "projection_bwd"),
-               "gs:sh": ("sh_fwd", "sh_bwd"),
-               "gs:tile_sort": ("tile_sort", "tile_sort"),
-               "gs:gather": ("gather", "gather_transpose"),
-               "gs:composite": ("k2", "k3"),
-               "gs:loss": ("loss_fwd", "loss_bwd"),
+PART_SCOPES = {"gs.projection": ("projection_fwd", "projection_bwd"),
+               "gs.sh": ("sh_fwd", "sh_bwd"),
+               "gs.tile_sort": ("tile_sort", "tile_sort"),
+               "gs.gather": ("gather", "gather_transpose"),
+               "gs.composite": ("k2", "k3"),
+               "gs.loss": ("loss_fwd", "loss_bwd"),
                "Optimizer.step#": ("adam", "adam")}
 PART_KERNELS = {"composite_fwd_kernel": "k2", "composite_bwd_kernel": "k3"}
 
 
 def step_work(means, quats, scales, opac, sh, viewmat, K, width, height,
-              tile_capacity=TILE_CAPACITY):
+              tiles_per_gauss=None, tile_capacity=None):
     """The counts ``roofline.gs_step_cost`` takes for the step's view of
     these gaussians: the tile intersections, those in the tiles' windows,
     and the compositing's entered chunks and live pairs (a forward render,
-    K2 on a card)."""
+    K2 on a card).  The budgets default to the step's: none, every pair
+    kept."""
     with torch.no_grad():
         p = rasterize.project_view(means, quats, scales, opac, sh, viewmat,
                                    K, width, height, SH_DEGREE)
         counts = rasterize.tile_windows(p.means2d, p.radii, p.valid,
                                         p.depths, width, height,
-                                        TILES_PER_GAUSS, tile_capacity)[1]
+                                        tiles_per_gauss, tile_capacity).counts
         attrs, nchunks, ntx = rasterize.tile_attrs(
-            p, width, height, TILES_PER_GAUSS, tile_capacity)
+            p, width, height, tiles_per_gauss, tile_capacity)
         pairs = k23.pair_counts(attrs, k23.composite_fwd(attrs, nchunks,
                                                          ntx)[1], ntx)
     return dict(G=means.shape[0], sh_degree=SH_DEGREE, width=width,
                 height=height, intersections=int(counts.sum()),
-                kept=int(counts.clamp(max=tile_capacity).sum()),
+                kept=int(counts.clamp(max=attrs.shape[1]).sum()),
                 chunks_entered=pairs["chunks_entered"],
                 live_pairs=pairs["live_pairs"])
 
@@ -82,8 +83,8 @@ def setup(num_gaussians=G, width=W, height=H, seed=0, device="cuda"):
     parameters as ``step.params`` (field -> leaf tensor) and the inputs of
     its render as ``step.inputs()``.  ``step.work()`` is ``step_work`` on
     those inputs: the next step's counts.  The step's parts run under
-    ``record_function`` scopes named ``gs:<part>`` (``rasterize.py`` adds
-    its own), which ``tools/trace_gs_step_torch.py`` reads."""
+    ``record_function`` scopes named ``gs.<part>`` (``rasterize.py`` adds
+    its own spans), which ``tools/trace_gs_step_torch.py`` reads."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-2, 2, (num_gaussians, 3)) + np.array([0, 0, 6.0])
     cols = rng.uniform(0, 1, (num_gaussians, 3))
@@ -101,19 +102,18 @@ def setup(num_gaussians=G, width=W, height=H, seed=0, device="cuda"):
 
     def inputs():
         sp = splats_mod.with_float_params(splats, params)
-        with record_function("gs:projection"):
+        with record_function("gs.projection"):
             opac = torch.sigmoid(sp.opacities) * alive
             scales = torch.exp(sp.scales)
-        with record_function("gs:sh"):
+        with record_function("gs.sh"):
             sh = torch.cat([sp.sh0, sp.shN], dim=1)
         return sp.means, sp.quats, scales, opac, sh, viewmat, K
 
     def step():
         opt.zero_grad(set_to_none=True)
         out = rasterize.rasterize(
-            *inputs(), width=width, height=height, sh_degree=SH_DEGREE,
-            tiles_per_gauss=TILES_PER_GAUSS, tile_capacity=TILE_CAPACITY)
-        with record_function("gs:loss"):
+            *inputs(), width=width, height=height, sh_degree=SH_DEGREE)
+        with record_function("gs.loss"):
             l1 = torch.mean(torch.abs(out.rgb - target))
             loss = 0.8 * l1 + 0.2 * (1 - ssim.ssim(out.rgb, target))
         loss.backward()

@@ -93,8 +93,9 @@ Phases (any failure exits non-zero):
      (photos rendered by the port's rasterizer with SH degree 3, written as
      PNG and a COLMAP model), then ``gs.trainer.Runner`` trains 40 steps at
      SH degree 3 with refine and opacity reset on the card, evaluates and
-     saves a checkpoint; launch counters prove every step went through K2
-     and K3;
+     saves a checkpoint, with ``GSConfig``'s sizing (no pair cut, windows
+     as long as the view's fullest tile); launch counters prove every
+     step went through K2 and K3;
   13. 3DGS options on that scene (``GS_OPTS`` line): run A trains 40 steps
      with ``pose_opt``, ``app_opt``, the bilateral grid, the depth loss,
      ``visible_adam``, PNG compression and pose noise, with LPIPS (seeded
@@ -111,7 +112,7 @@ Phases (any failure exits non-zero):
      then take 10 steps on a small scene on the CPU and on the card, whose
      losses, pose deltas and bilateral grids must agree.  K2/K3 are then
      held against their plain versions on one view's real tiles of the GS
-     phase;
+     phase, laid out as its training steps laid them out;
   14. multi-device paths (``DIST`` line, with the number of cards the
      machine shows; NCCL takes one rank a card): over a world-1 NCCL group
      in this process, one BA solve at phase 4's shape through
@@ -2452,11 +2453,12 @@ def profile_gs_step(runner, label="GS_PROFILE", trace="gs_step_trace.json"):
 
 def gs_main_cfg(root, result, **options):
     """The 3DGS main shape's configuration (SH degree 3 from step 6, pool
-    4x the SfM points, 512 gaussians a tile, 16 tiles a gaussian)."""
+    4x the SfM points), with ``GSConfig``'s sizing: every gaussian-tile
+    pair kept, the windows as long as the view's fullest tile."""
     kw = dict(data_dir=root, result_dir=os.path.join(root, result),
               max_steps=GS_STEPS, test_every=8, capacity_mult=4.0,
-              sh_degree=3, sh_degree_interval=2, tile_capacity=512,
-              tiles_per_gauss=16, eval_steps=(), save_steps=())
+              sh_degree=3, sh_degree_interval=2, eval_steps=(),
+              save_steps=())
     return GSConfig(**{**kw, **options})
 
 
@@ -3225,8 +3227,9 @@ def dist_gs(device, root, result="dist", batch=DIST_GS_BATCH, rank=0,
     sp = shard()
     opt = gs_splats.make_optimizer(gs_splats.float_params(sp),
                                    runner.scene_scale)
-    step = gd.make_distributed_train_step(opt, GS_W, GS_H, tiles_per_gauss=16,
-                                          tile_capacity=512)
+    step = gd.make_distributed_train_step(
+        opt, GS_W, GS_H, tiles_per_gauss=runner.cfg.tiles_per_gauss,
+        tile_capacity=runner.cfg.tile_capacity)
     gs_raster.composite.composite_tiles = keep_first
     torch.cuda.synchronize()
     k23.composite_fwd.launches = k23.composite_bwd.launches = 0

@@ -203,12 +203,13 @@ class Dataset:
     def __len__(self):
         return len(self.indices)
 
-    def __getitem__(self, i):
+    def meta(self, i):
+        """Item ``i`` without its image: K, camtoworld, image_id and, with
+        depths, the SfM points' pixels and depths."""
         idx = int(self.indices[i])
         data = {
             "K": self.parser.Ks[idx],
             "camtoworld": self.parser.camtoworlds[idx],
-            "image": self.parser.load_image(idx),
             "image_id": idx,
         }
         if self.load_depths:
@@ -216,3 +217,10 @@ class Dataset:
             data["points"] = pix
             data["depths"] = depths
         return data
+
+    def image(self, i):
+        """Item ``i``'s image, decoded (``Parser.load_image``)."""
+        return self.parser.load_image(int(self.indices[i]))
+
+    def __getitem__(self, i):
+        return dict(self.meta(i), image=self.image(i))

@@ -116,7 +116,7 @@ def exchange(ps):
 
 def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
                      sh_degree: int, ssim_lambda: float = 0.2,
-                     tiles_per_gauss: int = 16, tile_capacity: int = 512,
+                     tiles_per_gauss=None, tile_capacity=None,
                      opacity_reg: float = 0.0, scale_reg: float = 0.0,
                      camera_model: str = "pinhole"):
     """Returns (objective, loss, radii_max [G_loc], seen [G_loc], rgb
@@ -167,8 +167,8 @@ def distributed_loss(splats: Splats, offset, batch, width: int, height: int,
 
 def make_distributed_train_step(optimizer, width: int, height: int,
                                 ssim_lambda: float = 0.2,
-                                tiles_per_gauss: int = 16,
-                                tile_capacity: int = 512,
+                                tiles_per_gauss=None,
+                                tile_capacity=None,
                                 opacity_reg: float = 0.0,
                                 scale_reg: float = 0.0,
                                 camera_model: str = "pinhole",

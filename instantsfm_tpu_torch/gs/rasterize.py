@@ -3,22 +3,26 @@
 Counterpart of ``instantsfm_tpu/gs/rasterize.py`` (its default route):
 
 1. project every gaussian (``projection.project``) and evaluate its SH
-   colour, then expand it into the 16x16 tiles it covers, with a fixed
-   budget of ``tiles_per_gauss`` tiles;
+   colour, then expand it into the 16x16 tiles its 3-sigma box covers;
 2. one stable sort of the (tile, depth) key, packed as
-   ``tile << 32 | float32 bits of max(depth, 0)``, and a searchsorted for
-   the per-tile ranges;
-3. per-tile windows of ``tile_capacity`` gaussians gathered from the packed
-   attribute table (empty slots hit the all-zero sentinel row), composited
-   by kernels K2/K3 (``gs/composite.py``); autograd's transpose of the
-   gather (``index_add_``) routes K3's per-slot gradients back to the
-   gaussians.
+   ``tile << 32 | float32 bits of max(depth, 0)``, and each tile's range
+   from the per-tile counts;
+3. per-tile windows of depth-sorted gaussians scattered from the packed
+   attribute table, composited by kernels K2/K3 (``gs/composite.py``);
+   autograd's transposes (a gather of the slots, ``index_add_`` over the
+   pairs) route K3's per-slot gradients back to the gaussians.
+
+The expansion and the windows are sized from the view's own counts, so
+no pair is cut (``tile_windows``).  This departs from the JAX package,
+whose static shapes fix ``tiles_per_gauss`` tiles a gaussian and
+``tile_capacity`` gaussians a tile; given those budgets, the port cuts as
+JAX does and counts what it cut.
 
 Densification statistics come from the gradient w.r.t. an explicit
 screen-space offset probe (``means2d_offset``), gsplat's ``means2d.grad``.
 
-Each part runs under a span (``utils/debug.span``: ``gs:projection``,
-``gs:sh``, ``gs:tile_sort``, ``gs:gather``, ``gs:composite``), a
+Each part runs under a span (``utils/debug.span``: ``gs.projection``,
+``gs.sh``, ``gs.tile_sort``, ``gs.gather``, ``gs.composite``), a
 ``record_function`` scope under a profiler, by which a profile of a step
 assigns device time to the parts
 ``utils/roofline.py::gs_step_cost`` counts.
@@ -31,7 +35,8 @@ from typing import NamedTuple
 import torch
 
 from instantsfm_tpu_torch.gs import composite, projection, sh as sh_mod
-from instantsfm_tpu_torch.utils.debug import span
+from instantsfm_tpu_torch.gs.composite import CHUNK
+from instantsfm_tpu_torch.utils.debug import read, span, stat_add
 
 TILE = 16
 
@@ -60,7 +65,7 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
                  eps2d: float = 0.3, means2d_offset=None,
                  camera_model: str = "pinhole") -> Projected2D:
     """EWA projection and SH colour for one view."""
-    with span("gs:projection"):
+    with span("gs.projection"):
         proj = projection.project(means, quats, scales, viewmat, Kmat,
                                   width, height, eps2d=eps2d,
                                   camera_model=camera_model)
@@ -68,7 +73,7 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
         if means2d_offset is not None:
             means2d = means2d + means2d_offset
 
-    with span("gs:sh"):
+    with span("gs.sh"):
         cam_pos = -viewmat[:3, :3].T @ viewmat[:3, 3]
         dirs = means - cam_pos
         dirs = dirs / torch.clamp(
@@ -82,7 +87,7 @@ def project_view(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
 
 def rasterize(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
               width: int, height: int, sh_degree: int = 3,
-              tiles_per_gauss: int = 16, tile_capacity: int = 512,
+              tiles_per_gauss=None, tile_capacity=None,
               background=None, means2d_offset=None, eps2d: float = 0.3,
               camera_model: str = "pinhole") -> RasterOut:
     """Full differentiable forward render of one view.
@@ -101,19 +106,34 @@ def rasterize(means, quats, scales, opacities, sh_coeffs, viewmat, Kmat,
                                background=background)
 
 
+class Windows(NamedTuple):
+    """A view's gaussian-tile pairs laid out for the compositing kernels."""
+    slots: torch.Tensor    # [n] int64: tile * K + the pair's rank in its tile
+    gauss: torch.Tensor    # [n] int64: the gaussian of each slot
+    counts: torch.Tensor   # [n_tiles] int64: pairs of each tile, before the
+    #                        capacity cut
+    K: int                 # slots a tile, a whole number of chunks
+    cut: bool              # some pairs fell past the capacity (their slot
+    #                        is the dump slot n_tiles * K)
+
+
 def tile_windows(means2d, radii, valid, depths, width: int, height: int,
-                 tiles_per_gauss: int, tile_capacity: int):
+                 tiles_per_gauss=None, tile_capacity=None) -> Windows:
     """Tile expansion, (tile, depth) sort and per-tile windows.
 
-    Returns (tile_gauss [n_tiles, tile_capacity] int64 gaussian ids, G for
-    empty slots; counts [n_tiles] gaussians that cover each tile, before
-    the capacity cut)."""
+    A gaussian covers the tiles of its 3-sigma box.  By default every
+    pair is kept: the expansion is sized by the view's pair count and the
+    windows by its fullest tile, both read to the host in one read
+    (``gs.sizes``), as gsplat sizes its intersections.  ``tiles_per_gauss``
+    (a square window of tiles from the box's corner) and ``tile_capacity``
+    (the nearest gaussians of a tile) are the JAX package's fixed budgets;
+    the pairs they cut are counted (``gs_pairs_cut``, beside ``gs_pairs``
+    and the windows' chunks ``gs_chunks``)."""
     G = means2d.shape[0]
     dev = means2d.device
     ntx = (width + TILE - 1) // TILE
     nty = (height + TILE - 1) // TILE
     n_tiles = ntx * nty
-    side = max(int(tiles_per_gauss ** 0.5), 1)
 
     with torch.no_grad():
         def tile_of(x, n):
@@ -122,68 +142,94 @@ def tile_windows(means2d, radii, valid, depths, width: int, height: int,
         mx, my = means2d[:, 0], means2d[:, 1]
         tx0, tx1 = tile_of(mx - radii, ntx), tile_of(mx + radii, ntx)
         ty0, ty1 = tile_of(my - radii, nty), tile_of(my + radii, nty)
-        di = torch.arange(side, device=dev)
-        dy, dx = torch.meshgrid(di, di, indexing="ij")
-        gtx = tx0[:, None] + dx.reshape(1, -1)
-        gty = ty0[:, None] + dy.reshape(1, -1)
-        cover = (gtx <= tx1[:, None]) & (gty <= ty1[:, None]) & valid[:, None]
-        tile_ids = torch.where(cover, gty * ntx + gtx,
-                               torch.full_like(gtx, n_tiles))   # sentinel tile
+        zero = torch.zeros_like(tx0)
+        w = torch.where(valid, tx1 - tx0 + 1, zero)
+        h = torch.where(valid, ty1 - ty0 + 1, zero)
+        ww, hh = w, h
+        if tiles_per_gauss is not None:
+            side = max(int(tiles_per_gauss ** 0.5), 1)
+            ww, hh = w.clamp(max=side), h.clamp(max=side)
+        n_g = ww * hh
+
+        # each tile's pairs: a 2-D difference array of the expanded boxes
+        diff = torch.zeros((nty + 1) * (ntx + 1), dtype=torch.int64,
+                           device=dev)
+        one = torch.ones_like(tx0)
+        for y, x, sign in ((ty0, tx0, 1), (ty0, tx0 + ww, -1),
+                           (ty0 + hh, tx0, -1), (ty0 + hh, tx0 + ww, 1)):
+            diff.index_add_(0, y * (ntx + 1) + x, sign * one)
+        counts = diff.view(nty + 1, ntx + 1).cumsum(0).cumsum(1)[
+            :nty, :ntx].reshape(-1)
+        kept_t = counts if tile_capacity is None else \
+            counts.clamp(max=tile_capacity)
+        sizes = torch.stack([(w * h).sum(), n_g.sum(), kept_t.sum(),
+                             counts.max(),
+                             ((kept_t + CHUNK - 1) // CHUNK).sum()])
+        pairs, expanded, kept, most, chunks = (
+            int(v) for v in read("gs.sizes", sizes))
+        stat_add("gs_pairs", pairs)
+        stat_add("gs_pairs_cut", pairs - kept)
+        stat_add("gs_chunks", chunks)
+        K = max(most, 1) if tile_capacity is None else tile_capacity
+        K = -(-K // CHUNK) * CHUNK
+
+        # the expansion, gaussian by gaussian, each box row-major
+        gid = torch.repeat_interleave(torch.arange(G, device=dev), n_g,
+                                      output_size=expanded)
+        local = torch.arange(expanded, device=dev) - (
+            torch.cumsum(n_g, 0) - n_g)[gid]
+        wg = ww[gid]
+        tile = (ty0[gid] + local // wg) * ntx + tx0[gid] + local % wg
 
         # one stable sort of the packed (tile, depth) key: depth as the
         # float32 bit pattern of max(depth, 0), which orders like the value
         bits = torch.clamp(depths.detach(), min=0.0).to(torch.float32) \
             .view(torch.int32).to(torch.int64)
-        key = (tile_ids << 32) | bits[:, None]
-        sorted_key, order = torch.sort(key.reshape(-1), stable=True)
+        sorted_key, order = torch.sort((tile << 32) | bits[gid], stable=True)
         sorted_tiles = sorted_key >> 32
-        sorted_gauss = order // (side * side)
-
-        starts = torch.searchsorted(sorted_tiles,
-                                    torch.arange(n_tiles + 1, device=dev))
-        counts = starts[1:] - starts[:-1]
-        k = torch.arange(tile_capacity, device=dev)
-        k_ok = k[None, :] < counts[:, None]
-        sg_pad = torch.cat([sorted_gauss,
-                            torch.full((tile_capacity,), G, device=dev,
-                                       dtype=sorted_gauss.dtype)])
-        tile_gauss = torch.where(k_ok, sg_pad[starts[:-1, None] + k[None, :]],
-                                 torch.full_like(k_ok, G, dtype=torch.int64))
-    return tile_gauss, counts
+        rank = torch.arange(expanded, device=dev) - (
+            torch.cumsum(counts, 0) - counts)[sorted_tiles]
+        slots = sorted_tiles * K + rank
+        cut = kept < expanded
+        if cut:
+            slots = torch.where(rank < K, slots,
+                                torch.full_like(slots, n_tiles * K))
+    return Windows(slots=slots, gauss=gid[order], counts=counts, K=K,
+                   cut=cut)
 
 
 def tile_attrs(p: Projected2D, width: int, height: int,
-               tiles_per_gauss: int = 16, tile_capacity: int = 512):
+               tiles_per_gauss=None, tile_capacity=None):
     """The compositing kernels' inputs for one view: (attrs [n_tiles, K,
-    ATTR] float32 with K = tile_capacity rounded up to a whole chunk,
-    nchunks [n_tiles] int32, ntx).  Differentiable in the packed
+    ATTR] float32, the tiles' windows of depth-sorted rows, empty slots
+    zero; nchunks [n_tiles] int32; ntx).  Differentiable in the packed
     attributes."""
     n_tiles_x = (width + TILE - 1) // TILE
-    with span("gs:tile_sort"):
-        tile_gauss, counts = tile_windows(p.means2d, p.radii, p.valid,
-                                          p.depths, width, height,
-                                          tiles_per_gauss, tile_capacity)
-    with span("gs:gather"):
+    with span("gs.tile_sort"):
+        # a gaussian of opacity at most 1/255 is composited nowhere (the
+        # pool's dead rows among them): it takes no tile
+        valid = p.valid & (p.opac > composite.MIN_ALPHA)
+        win = tile_windows(p.means2d, p.radii, valid, p.depths, width,
+                           height, tiles_per_gauss, tile_capacity)
+    with span("gs.gather"):
         table = composite.pack_attrs(p.means2d, p.conics, p.colors, p.opac,
                                      p.depths)
-        # index_select, not table[tile_gauss]: its transpose is index_add_
-        # (atomics), where advanced indexing's sorts the ~10^6 slot indices
-        # and serializes the runs of repeated ones (the sentinel row's
-        # above all)
-        attrs = torch.index_select(table, 0, tile_gauss.reshape(-1)).reshape(
-            tile_gauss.shape + (composite.ATTR,))       # [n_tiles, K, ATTR]
-        K_pad = -(-tile_capacity // composite.CHUNK) * composite.CHUNK
-        if K_pad != tile_capacity:
-            attrs = torch.cat([attrs, attrs.new_zeros(
-                (attrs.shape[0], K_pad - tile_capacity, composite.ATTR))],
-                dim=1)
-        nchunks = (-(-torch.clamp(counts, max=tile_capacity)
+        n_tiles = win.counts.shape[0]
+        # each pair's row into its slot: the transposes are a gather of
+        # the slots and an index_add_ over the pairs' gaussians (no slot
+        # is empty-filled from a shared row, whose atomics would queue)
+        rows = torch.index_select(table, 0, win.gauss)
+        attrs = table.new_zeros((n_tiles * win.K + int(win.cut),
+                                 composite.ATTR)).index_copy(0, win.slots,
+                                                             rows)
+        attrs = attrs[:n_tiles * win.K].view(n_tiles, win.K, composite.ATTR)
+        nchunks = (-(-torch.clamp(win.counts, max=win.K)
                      // composite.CHUNK)).to(torch.int32)
     return attrs, nchunks, n_tiles_x
 
 
 def rasterize_projected(p: Projected2D, width: int, height: int,
-                        tiles_per_gauss: int = 16, tile_capacity: int = 512,
+                        tiles_per_gauss=None, tile_capacity=None,
                         background=None) -> RasterOut:
     """Tile expansion, (tile, depth) sort and compositing of projected
     gaussians."""
@@ -192,7 +238,7 @@ def rasterize_projected(p: Projected2D, width: int, height: int,
     nty = (height + TILE - 1) // TILE
     attrs, nchunks, _ = tile_attrs(p, width, height, tiles_per_gauss,
                                    tile_capacity)
-    with span("gs:composite"):
+    with span("gs.composite"):
         rgb, alpha, dep = composite.composite_tiles(attrs, nchunks, ntx)
     rgb = rgb.transpose(1, 2).to(dtype)                 # [n_tiles, P, 3]
     T = (1.0 - alpha).to(dtype)

@@ -20,6 +20,7 @@ import torch
 
 from instantsfm_tpu_torch.gs.splats import FIELDS, Splats
 from instantsfm_tpu_torch.math import lie
+from instantsfm_tpu_torch.utils.debug import read, stat_add
 
 
 class StrategyConfig(NamedTuple):
@@ -45,10 +46,18 @@ def init_state(capacity: int, device="cpu") -> StrategyState:
     return StrategyState(z(), z())
 
 
-def accumulate(state: StrategyState, probe_grad, radii, valid) -> StrategyState:
-    """probe_grad: d loss / d means2d [N, 2] (the screen-space probe)."""
+def accumulate(state: StrategyState, probe_grad, radii, valid, width: int,
+               height: int) -> StrategyState:
+    """probe_grad: d loss / d means2d [N, 2] (the screen-space probe) of a
+    ``width`` x ``height`` view.  As gsplat's DefaultStrategy, the gradient
+    is taken in normalised device units, x times width / 2 and y times
+    height / 2, before its norm is summed; the JAX package sums the pixel
+    gradient's norm, which ``grow_grad2d`` = 2e-4 then almost never
+    passes at a real image size."""
     seen = valid & (radii > 0)
-    g = torch.linalg.norm(probe_grad, dim=-1)
+    g = torch.linalg.norm(
+        probe_grad * probe_grad.new_tensor([width / 2.0, height / 2.0]),
+        dim=-1)
     return StrategyState(
         state.grad2d_sum + torch.where(seen, g, torch.zeros_like(g)),
         state.count + seen)
@@ -67,13 +76,20 @@ def zero_moments(optimizer, mask) -> None:
 @torch.no_grad()
 def refine(splats: Splats, optimizer, state: StrategyState, scene_scale,
            cfg: StrategyConfig = StrategyConfig(), prune_too_big: bool = False,
-           generator=None, noise=None):
+           generator=None, noise=None, record=None):
     """One grow + prune pass (gsplat DefaultStrategy._grow_gs/_prune_gs).
 
     Split children are drawn inside their parent with ``noise`` [N, 3]
     standard normals, drawn from ``generator`` when not given.  Updates
     ``splats`` and the optimizer's moments in place; returns
-    (splats, fresh strategy state, number grown, number pruned)."""
+    (splats, fresh strategy state, number grown, number pruned).  Two
+    host reads (``gs.refine``): the counts that size the growth, and the
+    pruned and alive counts after; the counters ``gs_grown``,
+    ``gs_grow_dropped`` (growers that found no dead slot), ``gs_pruned``
+    and ``gs_alive``.  A ``record`` dict receives the pass's decisions
+    [N] bool: ``dupli``, ``split``, ``grown`` (the growers that got a
+    slot) and ``prune``, and the alive counts ``alive_before`` and
+    ``alive_after``."""
     N = splats.alive.shape[0]
     dev = splats.alive.device
     avg_grad = state.grad2d_sum / torch.clamp(state.count, min=1.0)
@@ -87,9 +103,14 @@ def refine(splats: Splats, optimizer, state: StrategyState, scene_scale,
     grow = is_dupli | is_split
     grow_rank = torch.cumsum(grow.to(torch.int64), 0) - 1
     dead_order = torch.argsort(splats.alive.to(torch.uint8), stable=True)
-    num_dead = int((~splats.alive).sum())
+    dead = ~splats.alive
+    n_grow, num_dead = (int(v) for v in read(
+        "gs.refine", torch.stack([grow.sum(), dead.sum()])))
+    alive_before = N - num_dead
     use = grow & (grow_rank < num_dead)
-    src = use.nonzero()[:, 0]
+    # the growers that got a slot, in row order, sized by the read
+    src = torch.argsort((~use).to(torch.uint8), stable=True)[
+        :min(n_grow, num_dead)]
     dst = dead_order[grow_rank[src]]
 
     # children: splits sample inside the gaussian and shrink 1.6x
@@ -113,14 +134,17 @@ def refine(splats: Splats, optimizer, state: StrategyState, scene_scale,
             a[dst] = True
         else:
             a[dst] = a[src]
-    # originals of splits shrink too
-    splats.scales[is_split] -= math.log(1.6)
+    # originals of splits shrink too; a grower that found no dead slot
+    # stays as it was
+    splats.scales[is_split & use] -= math.log(1.6)
 
     # prune
     opac = torch.sigmoid(splats.opacities)
     too_faint = opac < cfg.prune_opa
-    # gsplat prunes oversized gaussians only after the first opacity reset
-    too_big = (scale_max > cfg.prune_scale3d * scene_scale) & prune_too_big
+    # gsplat prunes oversized gaussians only after the first opacity
+    # reset, by their scales after the growth (a split's halves)
+    too_big = (torch.exp(splats.scales).amax(dim=-1)
+               > cfg.prune_scale3d * scene_scale) & prune_too_big
     prune = splats.alive & (too_faint | too_big)
     splats.alive &= ~prune
 
@@ -128,7 +152,17 @@ def refine(splats: Splats, optimizer, state: StrategyState, scene_scale,
     touched = prune.clone()
     touched[dst] = True
     zero_moments(optimizer, touched)
-    return (splats, init_state(N, dev), int(use.sum()), int(prune.sum()))
+    n_prune, alive = (int(v) for v in read(
+        "gs.refine", torch.stack([prune.sum(), splats.alive.sum()])))
+    n_use = len(src)
+    stat_add("gs_grown", n_use)
+    stat_add("gs_grow_dropped", n_grow - n_use)
+    stat_add("gs_pruned", n_prune)
+    stat_add("gs_alive", alive)
+    if record is not None:
+        record.update(dupli=is_dupli, split=is_split, grown=use, prune=prune,
+                      alive_before=alive_before, alive_after=alive)
+    return (splats, init_state(N, dev), n_use, n_prune)
 
 
 @torch.no_grad()

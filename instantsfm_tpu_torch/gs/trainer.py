@@ -27,6 +27,7 @@ writes the files and the scalar log.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -46,6 +47,7 @@ from instantsfm_tpu_torch.gs import (bilateral, camera_opt, data as data_mod,
                                      strategy as strat_mod)
 from instantsfm_tpu_torch.gs.splats import FIELDS, FLOAT_FIELDS
 from instantsfm_tpu_torch.parallel import multihost
+from instantsfm_tpu_torch.utils.debug import read, span
 from instantsfm_tpu_torch.utils.device import full_f32, resolve_device
 from instantsfm_tpu_torch.utils.scalars import ScalarLogger
 
@@ -95,8 +97,11 @@ class GSConfig:
     bilateral_grid_lr: float = 2e-3
     depth_loss: bool = False
     depth_lambda: float = 1e-2
-    tile_capacity: int = 512
-    tiles_per_gauss: int = 16
+    # None: sized from each view's counts, no pair cut (gsplat); an int
+    # is the JAX package's fixed budget (a gaussian's tiles, a tile's
+    # gaussians), whose cuts ``gs_pairs_cut`` counts
+    tile_capacity: Optional[int] = None
+    tiles_per_gauss: Optional[int] = None
     random_bkgd: bool = False
     lpips_net: str = "alex"            # LPIPS where its weights are present
     distributed: bool = False          # gaussian-sharded multi-device rendering
@@ -246,6 +251,7 @@ class Runner:
                 self.aux["bilgrid"].parameters(), lr=cfg.bilateral_grid_lr)
 
         self.stats = {}
+        self._images = {}       # train view -> its image on the device
         self.refines = []       # one record per refine: step, counts
         self.relocations = []   # one record per MCMC relocation: step, moved
         self.step_s = []        # host seconds of each step after data loading
@@ -273,7 +279,8 @@ class Runner:
         cfg = self.cfg
         if "pose" in self.aux:
             camtoworld = self.aux["pose"](camtoworld, image_id)
-        viewmat = torch.linalg.inv(camtoworld)
+        # inv_ex: no error check, which would wait for the device
+        viewmat = torch.linalg.inv_ex(camtoworld).inverse
         opac = torch.sigmoid(splats.opacities) * splats.alive
         return raster_mod.rasterize(
             splats.means, splats.quats, torch.exp(splats.scales), opac,
@@ -290,8 +297,14 @@ class Runner:
             bkgd = torch.rand(3, generator=self.generator, device=self.device)
         else:
             bkgd = torch.zeros(3, device=self.device)
-        out = self._render(splats, view["camtoworld"], view["K"], W, H,
-                           sh_degree, view["image_id"], offset, bkgd)
+        with span("gs.render"):
+            out = self._render(splats, view["camtoworld"], view["K"], W, H,
+                               sh_degree, view["image_id"], offset, bkgd)
+        with span("gs.loss"):
+            return self._objective(splats, view, out)
+
+    def _objective(self, splats, view, out):
+        cfg = self.cfg
         rgb = out.rgb
         if "bilgrid" in self.aux:
             rgb = self.aux["bilgrid"](view["image_id"], rgb)
@@ -339,7 +352,8 @@ class Runner:
         optimizers = [self.optimizer, *self.aux_opt.values()]
         for opt in optimizers:
             opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("gs.backward"):
+            loss.backward()
         for opt in self.aux_opt.values():
             for group in opt.param_groups:
                 for p in group["params"]:
@@ -351,9 +365,10 @@ class Runner:
         outs = [r[1][0] for r in results]
         radii = torch.stack([o.radii for o in outs]).amax(0)
         seen = torch.stack([o.valid for o in outs]).any(0)
-        self._optimizer_step(seen)
-        for opt in self.aux_opt.values():
-            opt.step()
+        with span("gs.adam"):
+            self._optimizer_step(seen)
+            for opt in self.aux_opt.values():
+                opt.step()
         l1 = torch.stack([r[1][1] for r in results]).mean()
         s = torch.stack([r[1][2] for r in results]).mean()
         return loss.detach(), l1.detach(), s.detach(), offset.grad, radii, seen
@@ -374,8 +389,10 @@ class Runner:
 
     def _views(self, rng):
         cfg = self.cfg
-        views = [self.trainset[int(rng.integers(0, len(self.trainset)))]
-                 for _ in range(cfg.batch_size)]
+        views = []
+        for _ in range(cfg.batch_size):
+            i = int(rng.integers(0, len(self.trainset)))
+            views.append(dict(self.trainset.meta(i), image=self._image(i)))
         if cfg.patch_size:
             # random-crop training patches (reference patch_size): crop the
             # image and shift the principal point accordingly
@@ -384,17 +401,27 @@ class Runner:
                 Hv, Wv = v["image"].shape[:2]
                 x0 = int(rng.integers(0, max(Wv - ps, 0) + 1))
                 y0 = int(rng.integers(0, max(Hv - ps, 0) + 1))
-                v["image"] = v["image"][y0:y0 + ps, x0:x0 + ps]
+                v["image"] = v["image"][y0:y0 + ps, x0:x0 + ps].contiguous()
                 K = np.array(v["K"], np.float32)
                 K[0, 2] -= x0
                 K[1, 2] -= y0
                 v["K"] = K
         return [self._prepare(v) for v in views]
 
+    def _image(self, i):
+        """Train view ``i``'s image on the device, decoded and uploaded at
+        its first use and kept (so no step waits on the host's decoding,
+        as gsplat's loader workers decode ahead)."""
+        if i not in self._images:
+            self._images[i] = self._tensor(self.trainset.image(i))
+        return self._images[i]
+
     def _prepare(self, v):
         """A dataset item -> the tensors ``_loss`` reads; with the depth
         loss, the view's SfM points padded to MAX_DEPTH_PTS with a mask."""
-        out = {"image": self._tensor(v["image"]), "K": self._tensor(v["K"]),
+        img = v["image"]
+        out = {"image": img if torch.is_tensor(img) else self._tensor(img),
+               "K": self._tensor(v["K"]),
                "camtoworld": self._tensor(v["camtoworld"]),
                "image_id": v["image_id"]}
         if self.cfg.depth_loss:
@@ -409,30 +436,38 @@ class Runner:
                                                device=self.device) < n
         return out
 
-    def train(self):
+    def step(self, step: int, rng) -> float:
+        """Training step ``step``: views drawn from ``rng`` (a numpy
+        Generator), one update, the strategy, and the step-indexed hooks
+        (log, scalars, eval, compression, checkpoint).  Returns the loss
+        (the step's one read, ``gs.loss``).  ``train`` is this over
+        ``range(max_steps)``; the span ``gs.step`` is one step."""
         cfg = self.cfg
-        rng = np.random.default_rng(0)
-        t_start = time.time()
-        losses = []
-        for step in range(cfg.max_steps):
-            views = self._views(rng)
+        with span("gs.step"):
+            with span("gs.data"):
+                views = self._views(rng)
             t0 = time.perf_counter()
             sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
             loss, l1, s, g_offset, radii, valid = self._train_step(
                 views, sh_degree)
-            losses.append(float(loss))
-
-            if cfg.strategy == "default":
-                self._default_strategy(step, g_offset, radii, valid)
-            else:
-                self._mcmc_strategy(step)
+            loss_f = read("gs.loss", loss)
+            with span("gs.strategy"):
+                if cfg.strategy == "default":
+                    H, W = views[0]["image"].shape[:2]
+                    self._default_strategy(step, g_offset, radii, valid, W, H)
+                else:
+                    self._mcmc_strategy(step)
             self.step_s.append(time.perf_counter() - t0)
 
-            if step % 100 == 0:
-                self.log(f"step {step}: loss {float(loss):.4f} "
-                         f"l1 {float(l1):.4f} ssim {float(s):.4f}")
-            if cfg.tb_every > 0 and step % cfg.tb_every == 0:
-                self._log_scalars(step, loss, l1, s, views, sh_degree)
+            log_now = step % 100 == 0
+            tb_now = cfg.tb_every > 0 and step % cfg.tb_every == 0
+            if log_now or tb_now:
+                l1_f, s_f = read("gs.log", torch.stack([l1, s]))
+            if log_now:
+                self.log(f"step {step}: loss {loss_f:.4f} "
+                         f"l1 {l1_f:.4f} ssim {s_f:.4f}")
+            if tb_now:
+                self._log_scalars(step, loss_f, l1_f, s_f, views, sh_degree)
             if step + 1 in cfg.eval_steps:
                 self.eval(step + 1)
                 if cfg.compression == "png":
@@ -445,40 +480,87 @@ class Runner:
                         self.log(f"compressed model written to {cdir}")
             if step + 1 in cfg.save_steps:
                 self.save_checkpoint(step + 1)
+        return loss_f
+
+    def train(self):
+        rng = np.random.default_rng(0)
+        t_start = time.time()
+        losses = [self.step(step, rng) for step in range(self.cfg.max_steps)]
         self.log(f"training done in {time.time() - t_start:.1f}s")
         self.writer.flush()
         return losses
 
-    def _default_strategy(self, step, g_offset, radii, valid):
+    def state_dict(self) -> dict:
+        """The training state, copied in memory: the splat pool (this
+        rank's shard), each group's Adam moments, step count and learning
+        rate, the strategy state, ``n_updates``, the generator, and the
+        per-image modules with their optimizers.  ``load_state_dict``
+        restores it, so training resumes as if it had not stopped."""
+        clone = lambda v: v.detach().clone() if torch.is_tensor(v) else v
+        return dict(
+            splats={f: clone(getattr(self.splats, f)) for f in FIELDS},
+            adam={g["name"]: dict(lr=g["lr"], state={
+                k: clone(v) for k, v in self.optimizer.state.get(
+                    g["params"][0], {}).items()})
+                for g in self.optimizer.param_groups},
+            strategy=[clone(a) for a in self.strategy_state],
+            n_updates=self.n_updates,
+            generator=self.generator.get_state(),
+            aux={k: (copy.deepcopy(m.state_dict()),
+                     copy.deepcopy(self.aux_opt[k].state_dict()))
+                 for k, m in self.aux.items()})
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict``'s copy in place: the pool's tensors stay
+        the optimizer's parameters; the copy is left untouched."""
+        clone = lambda v: v.detach().clone() if torch.is_tensor(v) else v
+        for f in FIELDS:
+            getattr(self.splats, f).copy_(sd["splats"][f])
+        for g in self.optimizer.param_groups:
+            saved = sd["adam"][g["name"]]
+            g["lr"] = saved["lr"]
+            self.optimizer.state[g["params"][0]] = {
+                k: clone(v) for k, v in saved["state"].items()}
+        self.strategy_state = strat_mod.StrategyState(
+            *(clone(a) for a in sd["strategy"]))
+        self.n_updates = sd["n_updates"]
+        self.generator.set_state(sd["generator"])
+        for k, (module, opt) in sd["aux"].items():
+            self.aux[k].load_state_dict(module)
+            self.aux_opt[k].load_state_dict(copy.deepcopy(opt))
+
+    def _default_strategy(self, step, g_offset, radii, valid, width, height):
         """Densification cadence of the DefaultStrategy."""
         sc = self.strategy_cfg
         self.strategy_state = strat_mod.accumulate(
-            self.strategy_state, g_offset, radii, valid)
+            self.strategy_state, g_offset, radii, valid, width, height)
         if (sc.refine_start_iter <= step < sc.refine_stop_iter
                 and step % sc.refine_every == 0 and step > 0):
             def refine(splats, optimizer, state):
-                before = int(splats.alive.sum())
+                rec = {}
                 out = strat_mod.refine(
                     splats, optimizer, state, self.scene_scale, sc,
                     prune_too_big=step > sc.reset_every,
-                    generator=self.generator)
-                return out + (before, int(splats.alive.sum()))
+                    generator=self.generator, record=rec)
+                return out + (rec["alive_before"], rec["alive_after"])
 
-            if self.world > 1:
-                # every row of the pool competes for the dead slots
-                state = strat_mod.StrategyState(*(
-                    dist_mod.gather_rows(a) for a in self.strategy_state))
-                _, state, n_grow, n_prune, alive_before, alive = \
-                    dist_mod.run_on_pool(
-                        self.splats, self.optimizer,
-                        lambda pool, opt: refine(pool, opt, state))
-                n = self.splats.means.shape[0]
-                self.strategy_state = strat_mod.StrategyState(*(
-                    a[self.rank * n:(self.rank + 1) * n] for a in state))
-            else:
-                self.splats, self.strategy_state, n_grow, n_prune, \
-                    alive_before, alive = refine(
-                        self.splats, self.optimizer, self.strategy_state)
+            with span("gs.refine"):
+                if self.world > 1:
+                    # every row of the pool competes for the dead slots
+                    state = strat_mod.StrategyState(*(
+                        dist_mod.gather_rows(a) for a in self.strategy_state))
+                    _, state, n_grow, n_prune, alive_before, alive = \
+                        dist_mod.run_on_pool(
+                            self.splats, self.optimizer,
+                            lambda pool, opt: refine(pool, opt, state))
+                    n = self.splats.means.shape[0]
+                    self.strategy_state = strat_mod.StrategyState(*(
+                        a[self.rank * n:(self.rank + 1) * n] for a in state))
+                else:
+                    self.splats, self.strategy_state, n_grow, n_prune, \
+                        alive_before, alive = refine(
+                            self.splats, self.optimizer, self.strategy_state)
             self.refines.append(dict(step=step, grown=n_grow, pruned=n_prune,
                                      alive_before=alive_before,
                                      alive_after=alive))
@@ -525,14 +607,14 @@ class Runner:
         n = self.splats.alive.sum()
         if self.world > 1:
             dist.all_reduce(n)
-        return int(n)
+        return read("gs.alive", n)
 
     def _log_scalars(self, step, loss, l1, s, views, sh_degree):
         """Scalar stream (reference tb cadence, gsplat_trainer.py:708-723)."""
         w = self.writer
-        w.add_scalar("train/loss", float(loss), step)
-        w.add_scalar("train/l1loss", float(l1), step)
-        w.add_scalar("train/ssimloss", float(s), step)
+        w.add_scalar("train/loss", loss, step)
+        w.add_scalar("train/l1loss", l1, step)
+        w.add_scalar("train/ssimloss", s, step)
         w.add_scalar("train/num_GS", self.num_alive(), step)
         if self.device.type == "cuda":
             w.add_scalar("train/mem", torch.cuda.memory_allocated(self.device)

@@ -230,11 +230,11 @@ def _render(step, tile_capacity):
     with torch.no_grad():
         p = traster.project_view(*inputs, W, H, sh_degree=3)
         counts = traster.tile_windows(p.means2d, p.radii, p.valid, p.depths,
-                                      W, H, 16, tile_capacity)[1]
+                                      W, H, 16, tile_capacity).counts
         attrs, nchunks, ntx = traster.tile_attrs(p, W, H, 16, tile_capacity)
         logt = k23.composite_fwd(attrs, nchunks, ntx)[1]
-    return (bench_gs_torch.step_work(*inputs, W, H, tile_capacity), counts,
-            (attrs, logt, ntx))
+    return (bench_gs_torch.step_work(*inputs, W, H, 16, tile_capacity),
+            counts, (attrs, logt, ntx))
 
 
 def test_gs_step_cost_parts_match_a_tally(gs_step):

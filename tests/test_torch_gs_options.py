@@ -273,9 +273,12 @@ def test_slice_grid_float32_at_render_size():
 # ---------------------------------------------------------- depth loss
 
 def _options_cfg(cls, scene, out, **kw):
+    # a window of 6 x 6 tiles holds the 6 x 5 tiles of the view, so JAX's
+    # fixed budget cuts no pair, as the port's sized windows cut none
     base = dict(data_dir=scene, result_dir=out, max_steps=3, test_every=3,
                 sh_degree=1, sh_degree_interval=1, tile_capacity=128,
-                eval_steps=(), save_steps=(), capacity_mult=2.0, init_opa=0.5)
+                tiles_per_gauss=36, eval_steps=(), save_steps=(),
+                capacity_mult=2.0, init_opa=0.5)
     base.update(kw)
     return cls(**base)
 
@@ -641,9 +644,12 @@ def test_runner_three_steps_with_options_match_jax(scene, tmp_path,
 def test_runner_mcmc_relocates_and_keeps_the_pool(scene, tmp_path):
     """``strategy="mcmc"``: no refine and no opacity reset; the relocation
     runs on its cadence and moves the low-opacity rows; noise moves alive
-    rows only, so the rows outside the pool never change."""
+    rows only, so the rows outside the pool never change.  The render keeps
+    a 4 x 4 window of tiles a gaussian (the JAX package's budget), under
+    which some row is below ``min_opacity`` at both relocations."""
     tr = Runner(_options_cfg(GSConfig, scene, str(tmp_path), max_steps=5,
-                             strategy="mcmc", init_opa=0.1),
+                             strategy="mcmc", init_opa=0.1,
+                             tiles_per_gauss=16),
                 log=lambda *a: None, device="cpu")
     tr.mcmc_cfg = tst.MCMCConfig(refine_start_iter=2, refine_every=2,
                                  min_opacity=0.099)

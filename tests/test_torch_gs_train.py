@@ -4,10 +4,11 @@ per-group Adam, the DefaultStrategy, the data layer and three whole
 
 The scene for the data layer and the Runner is written with the port's own
 COLMAP and PNG writers (``chip_smoke.make_gs_scene``, photos rendered by
-the port's rasterizer).  It has 120 SfM points, so no tile overflows the
-128-slot capacity, and the Runner starts at opacity 0.1, so no tile
-saturates: the JAX Runner's jnp compositing (no early exit) then computes
-the same function as the port's K2/K3."""
+the port's rasterizer).  The port's rasterizer keeps every gaussian-tile
+pair; the JAX Runner is given budgets that cut none at this size, and the
+Runner starts at opacity 0.1, so no tile saturates: the JAX Runner's jnp
+compositing (no early exit) then computes the same function as the
+port's K2/K3."""
 
 import os
 
@@ -190,12 +191,23 @@ def _strategy_setup():
     return js, jstate, ts, opt, probe, radii, valid
 
 
+# The port takes the probe's gradient in normalised device units, x times
+# W / 2 and y times H / 2 (gsplat's DefaultStrategy); the JAX package sums
+# the pixel gradient, so it is handed the probe scaled by the same factors.
+VIEW_W, VIEW_H = 96, 72
+
+
+def _ndc(probe):
+    return probe * np.array([VIEW_W / 2, VIEW_H / 2], np.float32)
+
+
 def test_accumulate_matches_jax():
     js, _, ts, _, probe, radii, valid = _strategy_setup()
-    jstate = jst.accumulate(jst.init_state(128), jnp.asarray(probe),
+    jstate = jst.accumulate(jst.init_state(128), jnp.asarray(_ndc(probe)),
                             jnp.asarray(radii), jnp.asarray(valid))
     tstate = tst.accumulate(tst.init_state(128), torch.tensor(probe),
-                            torch.tensor(radii), torch.tensor(valid))
+                            torch.tensor(radii), torch.tensor(valid),
+                            VIEW_W, VIEW_H)
     for a, b in zip(tstate, jstate):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6)
 
@@ -203,12 +215,16 @@ def test_accumulate_matches_jax():
 @pytest.mark.parametrize("prune_too_big", [False, True])
 def test_refine_matches_jax(prune_too_big):
     """One grow + prune pass fed the JAX split noise: masks and counts
-    exact, the grown values and the zeroed Adam moments as in JAX."""
+    exact, the grown values and the zeroed Adam moments as in JAX.  With
+    ``prune_too_big`` the port judges size by the scales after the growth,
+    as gsplat does, so it also prunes the children of oversized growers,
+    which JAX judges by their slots' scales before the growth."""
     js, jstate, ts, opt, probe, radii, valid = _strategy_setup()
-    sstate_j = jst.accumulate(jst.init_state(128), jnp.asarray(probe),
+    sstate_j = jst.accumulate(jst.init_state(128), jnp.asarray(_ndc(probe)),
                               jnp.asarray(radii), jnp.asarray(valid))
     sstate_t = tst.accumulate(tst.init_state(128), torch.tensor(probe),
-                              torch.tensor(radii), torch.tensor(valid))
+                              torch.tensor(radii), torch.tensor(valid),
+                              VIEW_W, VIEW_H)
     key = jax.random.PRNGKey(5)
     noise = jax.random.normal(jax.random.split(key)[1], (128, 3),
                               js.means.dtype)
@@ -217,10 +233,14 @@ def test_refine_matches_jax(prune_too_big):
     ts2, tstate2, tg, tp = tst.refine(ts, opt, sstate_t, 1.0,
                                       prune_too_big=prune_too_big,
                                       noise=torch.tensor(np.asarray(noise)))
-    assert (tg, tp) == (int(jg), int(jp))
+    children = ~_np(js.alive) & _np(js2.alive)
+    oversized = np.exp(_np(js2.scales)).max(-1) > 0.1
+    extra = children & oversized if prune_too_big else children & False
+    assert prune_too_big == bool(extra.any())
+    assert (tg, tp) == (int(jg), int(jp) + int(extra.sum()))
     assert tg == 25 and (tp > 8 if prune_too_big else tp == 8)
     refined = convert.splats_to_numpy(ts2)
-    np.testing.assert_array_equal(refined["alive"], _np(js2.alive))
+    np.testing.assert_array_equal(refined["alive"], _np(js2.alive) & ~extra)
     for f in tsp.FLOAT_FIELDS:
         np.testing.assert_allclose(refined[f], _np(getattr(js2, f)),
                                    rtol=1e-6, atol=1e-7, err_msg=f)
@@ -293,9 +313,13 @@ def test_runner_three_steps_match_jax(scene, tmp_path):
     they stay within the 6 lr that 3 steps allow, and the covariances they
     give agree to 1e-3 relative (measured 1.4e-4)."""
     kw = dict(data_dir=scene, max_steps=3, test_every=3, sh_degree=1,
-              sh_degree_interval=1, tile_capacity=128, eval_steps=(),
-              save_steps=(), capacity_mult=2.0)
-    jr = JRunner(JGSConfig(result_dir=str(tmp_path / "jax"), **kw),
+              sh_degree_interval=1, eval_steps=(), save_steps=(),
+              capacity_mult=2.0)
+    # the port keeps every gaussian-tile pair; JAX's budgets here cut none:
+    # a window of 6 x 6 tiles holds the 6 x 5 tiles of the view, and a
+    # tile can hold the whole pool (1,264 slots)
+    jr = JRunner(JGSConfig(result_dir=str(tmp_path / "jax"),
+                           tiles_per_gauss=36, tile_capacity=1280, **kw),
                  log=lambda *a: None)
     tr = Runner(GSConfig(result_dir=str(tmp_path / "port"), **kw),
                 log=lambda *a: None, device="cpu")

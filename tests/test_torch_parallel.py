@@ -133,7 +133,10 @@ def group4(problems, gs_scene, ring_db, tmp_path_factory):
     payload = {"device": "cpu", "pairs": PAIRS4, "ring_db": ring_db,
                "lm": {k: (*_to_torch(p, o), STEPS)
                       for k, (_, p, o) in problems.items()},
-               "gs": dict(scene=gs_scene, sh_degree=1, tile_capacity=128)}
+               # the port's sizing, every pair kept; JAX is given budgets
+               # under which it cuts nothing (below)
+               "gs": dict(scene=gs_scene, sh_degree=1, tiles_per_gauss=None,
+                          tile_capacity=None)}
     return run_group(WORLD4, "world", payload,
                      str(tmp_path_factory.mktemp("world4")),
                      launcher="torchrun")
@@ -392,7 +395,11 @@ def test_distributed_gs_world4_matches_jax(group4):
     mesh = jdist.make_mesh(jax.devices()[:WORLD4])
     pool = jdist.shard_splats(mesh, jdist.pad_splats(pool, WORLD4))
     H, W = views["image"].shape[1:3]
-    loss_fn = jdist.make_distributed_loss(mesh, W, H, 1, tile_capacity=128)
+    # a window of every tile (6 x 5 of them) and a slot for every row of
+    # the pool: JAX cuts no pair, as the port cuts none
+    loss_fn = jdist.make_distributed_loss(
+        mesh, W, H, 1, tiles_per_gauss=36,
+        tile_capacity=-(-pool.means.shape[0] // 128) * 128)
     offset = jnp.zeros((pool.means.shape[0], 2), jnp.float32)
     (loss, _), (g_params, g_offset) = jax.jit(
         jax.value_and_grad(loss_fn, argnums=(0, 2), has_aux=True))(

@@ -344,6 +344,7 @@ def gs_world(g, rank, world, device):
         data_dir=g["scene"],
         result_dir=os.path.join(g["scene"], f"out_{os.getpid()}"),
         batch_size=world, sh_degree=g["sh_degree"],
+        tiles_per_gauss=g["tiles_per_gauss"],
         tile_capacity=g["tile_capacity"], eval_steps=(), save_steps=(),
         tb_every=0), log=lambda *a: None, device=device)
     chk = chip_smoke.gs_shard_check(runner, rank, world, seed=0)

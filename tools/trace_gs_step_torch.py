@@ -9,7 +9,7 @@ a step and its idle share, and writes the trace to
 
 Then each part of ``utils/roofline.py::gs_step_cost`` with its device time
 a step beside its own bound (``parts``): a kernel goes to the part whose
-``gs:<part>`` scope launched it, or, in the backward, to the part whose
+``gs.<part>`` scope launched it, or, in the backward, to the part whose
 forward op made its autograd node (``bench.time_by_scope``; K2 and K3 by
 name).  ``unassigned`` lists the kernels no part took (the untiling of the
 image, gradient accumulation), largest first.
