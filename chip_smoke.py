@@ -17,8 +17,12 @@ Phases (any failure exits non-zero):
      of ``K1_TOL`` of each camera's sum of its absolute chain and
      ``K1_SIGMAS`` times the rounding count of its sums; K2/K3 on
      hand-built tiles that reach every branch and on tiles whose gaussians
-     sit on the edges of the kernels' cull), with timings (CUDA events)
-     and the analytic memory/arithmetic bound;
+     sit on the edges of the kernels' cull; the BA build kernel, both
+     modes, at the benchmark's ``ring-200.ba`` problem and on seeded
+     problems of every covered camera model, poses free and frozen, both
+     camera-sum branches, float32 and float64, within ``build_check``'s
+     bounds: ``BA_BUILD`` lines), with timings (CUDA events) and the
+     analytic memory/arithmetic bound;
   4. BA path: ``pipeline.ba.bundle_adjustment_rounds`` (3 rounds, float32)
      on a seeded synthetic scene at the ETH3D-indoor shape (200 images, 50k
      points, 8 observations per point), then one global-positioning LM
@@ -150,7 +154,9 @@ Phases (any failure exits non-zero):
      imported by a fresh process from a temporary directory, it must build
      K1 into the user cache and launch it once, held here against K1's
      plain version;
-  17. prints the kernels line, the card line and, last, the ok line.
+  17. prints the kernels line (K1, K2, K3 and the BA build kernel, whose
+     entry counts its launches by phase), the card line and, last, the ok
+     line.
 """
 
 from __future__ import annotations
@@ -197,9 +203,10 @@ from instantsfm_tpu_torch.pipeline import ba, preprocess, relpose, vgc
 from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
 from instantsfm_tpu_torch.scene import cameras as cm
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
-from instantsfm_tpu_torch.solve import block_lm, robust
+from instantsfm_tpu_torch.solve import ba_closed, block_lm, robust
 from instantsfm_tpu_torch.solve import schur_wchain as k1
-from instantsfm_tpu_torch.solve.blocked import bucketize, bucketize_problem
+from instantsfm_tpu_torch.solve.blocked import (bucketize, bucketize_problem,
+                                                seg_by_pt)
 from instantsfm_tpu_torch.solve.problems import make_ba_problem, make_gp_problem
 from instantsfm_tpu_torch.utils import build, debug, roofline
 from instantsfm_tpu_torch.utils.roofline import (ALPHA_WORK, LIVE_WORK,
@@ -481,6 +488,355 @@ def k1_parity(device):
     if {c["branch"] for c in cases} != {"shared", "global"}:
         raise AssertionError("K1 cases do not reach both camera-sum branches")
     return cases
+
+
+# ------------------------------------------------------------ BA build kernel
+
+def build_inputs(model_id, poses, C, lengths, dtype, device, seed=SEED,
+                 track_pad=8):
+    """(problem, params, obs, buckets) of a seeded BA problem on ``device``:
+    C cameras of ``model_id`` around the origin, tracks of the given lengths
+    (bucketed; padded tracks, 10% of the rows invalid), keypoints 1.2 px
+    from the projections (residuals on both sides of Huber's 1 px)."""
+    rng = np.random.default_rng(seed)
+    T = len(lengths)
+    pt = np.repeat(np.arange(T), lengths)
+    O = len(pt)
+    cam = rng.integers(0, C, O)
+    X = rng.uniform(-1, 1, (T, 3))
+    ang = rng.normal(0, 0.1, (C, 3))
+    q = np.concatenate([np.sin(ang / 2), np.ones((C, 1))], 1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = np.c_[rng.normal(0, 0.2, (C, 2)), rng.uniform(4, 6, C)]
+    intr = np.zeros((C, cm.MAX_CAM_PARAMS))
+    base = {cm.SIMPLE_PINHOLE: [520.0, 320.0, 240.0],
+            cm.SIMPLE_RADIAL: [520.0, 320.0, 240.0, 0.04]}[model_id]
+    intr[:, :len(base)] = base
+    intr[:, 0] *= rng.uniform(0.95, 1.05, C)
+    d = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    xyz = lie.quat_rotate(d(q)[cam], d(X)[pt]) + d(t)[cam]
+    xy = (cm.img_from_cam(model_id, d(intr)[cam], xyz).numpy()
+          + rng.normal(0, 1.2, (O, 2)))
+    dev = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), device=device,
+                                              dtype=dt)
+    params = block_lm.Params(
+        cam={"q": dev(q), "t": dev(t), "intr": dev(intr)}, pts=dev(X),
+        scales=torch.zeros((O, 1), dtype=dtype, device=device),
+        scales_free=torch.zeros(O, dtype=torch.bool, device=device))
+    obs = block_lm.Observations(
+        dev(cam, torch.int32), dev(pt, torch.int32),
+        {"x": dev(xy[:, 0]), "y": dev(xy[:, 1])},
+        dev(rng.uniform(size=O) > 0.1, torch.bool))
+    params, obs, buckets, _ = bucketize_problem(params, obs,
+                                                track_pad=track_pad)
+    return make_ba_problem(model_id, optimize_poses=poses), params, obs, \
+        buckets
+
+
+def ring_ba_inputs(dtype, device, seed=SEED):
+    """(problem, params, obs, buckets) of the benchmark's BA cell at its
+    shape: the ``ring-200`` scene's own BA problem (``sfmbench/yardstick``:
+    200 SIMPLE_RADIAL cameras, the points seen twice or more, every
+    keypoint), at the true poses, bucketed."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "sfmbench"))
+    from yardstick import ring
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "sfmbench", "configs", "ring-200.json")) as f:
+        cfg = json.load(f)
+    scene = ring.make_scene(cfg["scene"], seed)
+    o = ring.ba_observations(scene)
+    O, C = len(o["cam"]), len(scene["R"])
+    dev = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), device=device,
+                                              dtype=dt)
+    params = block_lm.Params(
+        cam={"q": dev(ring.matrix_to_quat_xyzw(scene["R"])),
+             "t": dev(scene["t"]),
+             "intr": dev(np.tile(cm.pad_params(scene["intr"]), (C, 1)))},
+        pts=dev(scene["points"][o["point_ids"]]),
+        scales=torch.zeros((O, 1), dtype=dtype, device=device),
+        scales_free=torch.zeros(O, dtype=torch.bool, device=device))
+    obs = block_lm.Observations(
+        dev(o["cam"], torch.int32), dev(o["pt"], torch.int32),
+        {"x": dev(o["xy"][:, 0]), "y": dev(o["xy"][:, 1])},
+        torch.ones(O, dtype=torch.bool, device=device))
+    params, obs, buckets, _ = bucketize_problem(params, obs)
+    return make_ba_problem(cm.SIMPLE_RADIAL), params, obs, buckets
+
+
+BUILD_FIELDS = ("U", "g_cam", "V", "g_pt", "W", "loss_vec")
+# Float32: each entry within BUILD_F32_FACTOR times the float32 plain
+# version's own error against the float64 plain version, plus BUILD_ULPS
+# unit roundoffs of the entry's rounding count (``build_plain``).  Float64:
+# BUILD_F64_TOL of the field's largest entry and of the entry, as the CPU
+# tests hold the closed form to the autodiff build.
+BUILD_F32_FACTOR = 4.0
+BUILD_ULPS = 32
+BUILD_F64_TOL = 1e-9
+BUILD_FD_STEP = 2.0 ** -20     # the relative move of an input, float64
+BUILD_CHUNK = 1 << 20          # rows a pass of ``build_plain``
+
+
+def build_fields(out, PC):
+    """The build's outputs (Ug, V, g_pt, W, loss_vec) by field, Ug split into
+    U [C, PC, PC] and g_cam [C, PC]: the camera sums' two parts differ by
+    orders of magnitude, and each is held to its own scale."""
+    Ug, V, g_pt, W, loss = out
+    return dict(U=Ug[:, :PC * PC].reshape(-1, PC, PC), g_cam=Ug[:, PC * PC:],
+                V=V, g_pt=g_pt, W=W, loss_vec=loss)
+
+
+def build_plain(problem, params, obs, kernel, buckets, dtype, counts=False):
+    """The plain version's outputs by field (``build_fields``) in ``dtype``,
+    evaluated BUILD_CHUNK rows at a time (``ba_closed.rows_reference`` and
+    ``row_products``, the camera sums by ``index_add_``, the point sums by
+    ``seg_by_pt``, as ``build_reference``).  With ``counts`` also each
+    entry's rounding count, the scale of a correct float evaluation's
+    error in unit roundoffs.  A row's part is its sensitivity S, the sum
+    over the row's inputs (q, t, the model's parameters, X, the keypoint)
+    of |d out / d in| |in| by float64 differences of BUILD_FD_STEP (the
+    inputs' roundings, and the keypoint's subtraction from a projection
+    some 500 px away), plus its absolute chain A, the same products of
+    |r|, |Jc| and |Jp| (the last products' roundings, where the two
+    residual components' terms cancel, as rotation about the optical axis
+    against depth does); a per-row output's count is S + A; a sum's is
+    sqrt(SUM_o (S_o + A_o)^2 + N (SUM_o out_o^2 + sum^2)), the rows' parts
+    in quadrature and the roundings of its N partial sums, as in K1's
+    count.  Returns (fields, counts or None)."""
+    model_id, poses = problem.reproj
+    PC = problem.cam_dim
+    C, T = params.cam["q"].shape[0], params.pts.shape[0]
+    O = obs.valid.shape[0]
+    npar = cm.get_camera_model_info(model_id)["num_params"]
+    ops = [a.to(dtype) for a in ba_closed.gathered(params, obs)]
+    ops[2] = ops[2][:, :npar]
+    NC = PC * PC + PC
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=ops[0].device)
+    Ug, pt_rows, W, loss = z(C, NC), z(O, 12), z(O, 3 * PC), z(O, 1)
+    if counts:
+        cam_s2, cam_x2, cam_n = z(C, NC), z(C, NC), z(C, 1)
+        pt_s2, pt_x2, pt_n = z(O, 12), z(O, 12), z(O, 1)
+        W_count, loss_count = z(O, 3 * PC), z(O, 1)
+
+    def rows(valid, g, chain=False):
+        r, Jc, Jp = ba_closed.rows_reference(model_id, poses, *g)
+        if chain:
+            r, Jc, Jp = r.abs(), Jc.abs(), Jp.abs()
+        cam, V_o, gp_o, W_o, loss_o = ba_closed.row_products(kernel, valid, r,
+                                                             Jc, Jp)
+        n = cam.shape[0]
+        out = (cam, torch.cat([V_o.reshape(n, 9), gp_o], 1),
+               W_o.reshape(n, -1), loss_o[:, None])
+        return [a.abs() for a in out] if chain else out
+
+    for start in range(0, O, BUILD_CHUNK):
+        sl = slice(start, min(O, start + BUILD_CHUNK))
+        g, ci, valid = [a[sl] for a in ops], obs.cam_idx[sl], obs.valid[sl]
+        base = rows(valid, g)
+        Ug.index_add_(0, ci, base[0])
+        pt_rows[sl], W[sl], loss[sl] = base[1:]
+        if not counts:
+            continue
+        sens = rows(valid, g, chain=True)
+        for k, a in enumerate(g):
+            for j in range(a.shape[1]):
+                moved = a.clone()
+                moved[:, j] *= 1.0 + BUILD_FD_STEP
+                out = rows(valid, g[:k] + [moved] + g[k + 1:])
+                for s, m, b in zip(sens, out, base):
+                    s += (m - b).abs() / BUILD_FD_STEP
+        cam_s2.index_add_(0, ci, sens[0] ** 2)
+        cam_x2.index_add_(0, ci, base[0] ** 2)
+        cam_n.index_add_(0, ci, (base[0] != 0).any(1, keepdim=True)
+                         .to(dtype))
+        pt_s2[sl], pt_x2[sl] = sens[1] ** 2, base[1] ** 2
+        pt_n[sl] = (base[1] != 0).any(1, keepdim=True).to(dtype)
+        W_count[sl], loss_count[sl] = sens[2], sens[3]
+
+    seg = lambda a: seg_by_pt(a, buckets, T)
+    pts = seg(pt_rows)
+    fields = build_fields((Ug, pts[:, :9].reshape(T, 3, 3), pts[:, 9:],
+                           W.reshape(O, PC, 3), loss[:, 0]), PC)
+    if not counts:
+        return fields, None
+    cam_c = torch.sqrt(cam_s2 + cam_n * (cam_x2 + Ug ** 2))
+    pt_c = torch.sqrt(seg(pt_s2) + seg(pt_n) * (seg(pt_x2) + pts ** 2))
+    return fields, build_fields((cam_c, pt_c[:, :9].reshape(T, 3, 3),
+                                 pt_c[:, 9:], W_count.reshape(O, PC, 3),
+                                 loss_count[:, 0]), PC)
+
+
+def build_compare(name, got, want, ref=None, counts=None):
+    """Raise unless every field of ``got`` (``BUILD_FIELDS`` and
+    ``loss_mode``, the loss mode's output, held to ``loss_vec``) is finite
+    and within its bound of the plain version: in float64 BUILD_F64_TOL of
+    ``want``'s largest entry of the field and of the entry; in float32
+    BUILD_F32_FACTOR |want - ref| + BUILD_ULPS u counts, ``want`` the
+    float32 plain version, ``ref`` the float64 one and ``counts`` the
+    rounding counts (``build_plain``).  Returns (the worst error over its
+    bound, the largest error, the worst ratio by field)."""
+    want = dict(want, loss_mode=want["loss_vec"])
+    by_field, max_err = {}, 0.0
+    for k, g in got.items():
+        if counts is None:
+            w = want[k]
+            err = (g - w).abs()
+            bound = BUILD_F64_TOL * (w.abs().max().clamp_min(1e-30)
+                                     + w.abs())
+        else:
+            r = ref["loss_vec" if k == "loss_mode" else k]
+            err = (g.double() - r).abs()
+            bound = (BUILD_F32_FACTOR * (want[k].double() - r).abs()
+                     + BUILD_ULPS * torch.finfo(g.dtype).eps / 2
+                     * counts["loss_vec" if k == "loss_mode" else k])
+        bad = ~(err <= bound)
+        if bad.any() or not torch.isfinite(g).all():
+            raise AssertionError(
+                f"BA build {name}: {k}: {int(bad.sum())} of {bad.numel()} "
+                f"entries beyond their bound, max err {err.max().item()}")
+        by_field[k] = torch.where(bound > 0, err / bound,
+                                  torch.zeros_like(err)).max().item()
+        max_err = max(max_err, err.max().item())
+    return max(by_field.values()), max_err, by_field
+
+
+def build_check(name, problem, params, obs, kernel, buckets):
+    """The kernel (both modes) against its plain version on the same card
+    inputs (``build_compare``'s bounds; the kernel's launches here are not
+    counted in ``ba_closed.LAUNCHES``).  Returns (the worst error over its
+    bound, the largest error, the worst ratio by field)."""
+    PC, T = problem.cam_dim, params.pts.shape[0]
+    launches = dict(ba_closed.LAUNCHES)
+    got = build_fields(ba_closed.build(problem, params, obs, kernel, T,
+                                       buckets), PC)
+    got["loss_mode"] = ba_closed.loss_vec(problem, params, obs, kernel)
+    ba_closed.LAUNCHES.update(launches)
+    torch.cuda.synchronize()
+    dtype = params.pts.dtype
+    want = build_plain(problem, params, obs, kernel, buckets, dtype)[0]
+    if dtype == torch.float64:
+        return build_compare(name, got, want)
+    ref, counts = build_plain(problem, params, obs, kernel, buckets,
+                              torch.float64, counts=True)
+    return build_compare(name, got, want, ref, counts)
+
+
+def build_bound(params, obs, buckets, PC):
+    """(bound_ms, bytes): a row's cam_idx, x, y and valid read and its W
+    and loss written, each point slot read and its V and g_pt written, the
+    cameras read and Ug written, once each, at 3.35 TB/s."""
+    s = params.pts.element_size()
+    O, T, C = obs.valid.shape[0], params.pts.shape[0], \
+        params.cam["q"].shape[0]
+    nbytes = (O * (4 + 2 * s + 1) + O * (3 * PC + 1) * s
+              + T * (3 + 12) * s
+              + C * (4 + 3 + params.cam["intr"].shape[1]) * s
+              + C * (PC * PC + PC) * s)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def build_case(name, inputs, reps, kernel=None, plain=True):
+    """One shape: the check, the kernel's time cold and warm, its loss
+    mode's, the plain version's (with ``plain``), and the byte bound.  The
+    launches made here are not counted in ``ba_closed.LAUNCHES``."""
+    problem, params, obs, buckets = inputs
+    kernel = kernel or robust.huber(1.0)
+    worst, max_err, by_field = build_check(name, problem, params, obs,
+                                           kernel, buckets)
+    launches = dict(ba_closed.LAUNCHES)
+    T = params.pts.shape[0]
+    PC = problem.cam_dim
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=params.pts.device)
+    run = lambda: ba_closed.build(problem, params, obs, kernel, T, buckets)
+    loss = lambda: ba_closed.loss_vec(problem, params, obs, kernel)
+    bound_ms, nbytes = build_bound(params, obs, buckets, PC)
+    C = params.cam["q"].shape[0]
+    ms = time_ms(run, reps, flush)
+    rec = dict(case=name, dtype=str(params.pts.dtype).replace("torch.", ""),
+               PC=PC, rows=obs.valid.shape[0], points=T, cams=C,
+               L=sorted({b[3] for b in buckets}),
+               branch=("shared" if ba_closed.shared_table(
+                   C, PC, params.pts.dtype) else "global"),
+               huber_delta=kernel.kind[1],
+               max_err_over_bound=worst, max_err_over_bound_by_field=by_field,
+               max_abs_err=max_err, ms=ms, ms_warm_l2=time_ms(run, reps),
+               loss_ms=time_ms(loss, reps, flush),
+               plain_ms=(time_ms(lambda: ba_closed.build_reference(
+                   problem, params, obs, kernel, T, buckets), 3,
+                   queued=False) if plain else None),
+               bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms,
+               mbytes=nbytes / 1e6)
+    ba_closed.LAUNCHES.update(launches)
+    log("BA_BUILD " + json.dumps(rec))
+    return rec
+
+
+def build_parity(device):
+    """The BA build kernel at the benchmark's BA cell (float32), against
+    its plain version there and on seeded problems of both covered models,
+    poses free and frozen, both camera-sum branches, float32 and float64."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.choice([2, 3, 5, 8, 13, 30, 64, 200, 300, 700],
+                         p=[.2, .2, .2, .15, .1, .06, .04, .02, .02, .01],
+                         size=6000)
+    cases = [build_case("ring_200_ba", ring_ba_inputs(torch.float32, device),
+                        reps=50)]
+    for dtype in (torch.float32, torch.float64):
+        for model_id, poses, C in ((cm.SIMPLE_RADIAL, True, 200),
+                                   (cm.SIMPLE_RADIAL, False, 200),
+                                   (cm.SIMPLE_RADIAL, True, 4000),
+                                   (cm.SIMPLE_RADIAL, False, 4000),
+                                   (cm.SIMPLE_PINHOLE, True, 200),
+                                   (cm.SIMPLE_PINHOLE, False, 4000)):
+            name = (f"{cm.CAMERA_MODEL_INFO[model_id]['name'].lower()}_"
+                    f"{'poses' if poses else 'frozen'}_c{C}")
+            cases.append(build_case(name, build_inputs(
+                model_id, poses, C, lengths, dtype, device), reps=20))
+    if {c["branch"] for c in cases} != {"shared", "global"}:
+        raise AssertionError("BA build cases do not reach both camera-sum "
+                             "branches")
+    return cases
+
+
+def _copied(tree):
+    """A copy of a Params or Observations tuple, its tensors cloned."""
+    copy_ = lambda v: ({k: u.clone() for k, u in v.items()}
+                       if isinstance(v, dict) else v.clone())
+    return tree._replace(**{k: copy_(v) for k, v in tree._asdict().items()})
+
+
+@contextlib.contextmanager
+def build_first_input(keep):
+    """While the block runs ``ba_closed.build`` is wrapped, and the first
+    input for which ``keep(problem, params)`` holds is copied into the
+    yielded dict (``inputs``: problem, params, obs, buckets; ``kernel``)."""
+    launch = ba_closed.build
+    kept = {}
+
+    def spy(problem, params, obs, kernel, num_points, buckets):
+        if not kept and keep(problem, params):
+            kept.update(inputs=(problem, _copied(params), _copied(obs),
+                                buckets), kernel=kernel)
+        return launch(problem, params, obs, kernel, num_points, buckets)
+
+    ba_closed.build = spy
+    try:
+        yield kept
+    finally:
+        ba_closed.build = launch
+
+
+def build_path_case(name, kept, reps=10):
+    """``build_case`` on the input a phase kept (``build_first_input``):
+    the kernel held against its plain version on what the path gave it;
+    None where the phase kept none."""
+    if not kept:
+        return None
+    rec = build_case(name, kept["inputs"], reps, kernel=kept["kernel"],
+                     plain=False)
+    kept.clear()
+    return rec
 
 
 # ------------------------------------------------------------ K2/K3 parity
@@ -961,12 +1317,13 @@ def run_ba(device):
     debug.drain_stats()
     torch.cuda.synchronize()
     k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
-    t0 = time.perf_counter()
-    tracks_out = ba.bundle_adjustment_rounds(
-        cameras, images, tracks, opts, thr, rounds=3, dtype=torch.float32,
-        device=device)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with build_first_input(lambda *_: True) as kept:
+        t0 = time.perf_counter()
+        tracks_out = ba.bundle_adjustment_rounds(
+            cameras, images, tracks, opts, thr, rounds=3,
+            dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = k1.schur_wchain.launches
     stats = debug.drain_stats()
     # the rounds share one shape: the first step captures the PCG's graphs
@@ -975,6 +1332,8 @@ def run_ba(device):
 
     finite = all(np.all(np.isfinite(a)) for a in
                  (images.qvec, images.tvec, tracks.xyz, cameras.params))
+    # the BA build kernel on the first system the rounds built
+    build_rec = build_path_case("ba_first_input", kept)
     cost1 = scene_cost(cameras, images, tracks, device)
     rot1, cen1 = pose_errors(images, gt)
     pcg_iters = stats.get("pcg_iters", [])
@@ -991,6 +1350,7 @@ def run_ba(device):
                step_ms=step_ms,
                k1_launches=launches,
                k1_plain_calls=k1.schur_wchain.plain_calls,
+               ba_build=build_rec,
                cost_before=cost0, cost_after=cost1,
                rot_err_deg_before=rot0, rot_err_deg_after=rot1,
                center_err_rel_before=cen0, center_err_rel_after=cen1,
@@ -1001,6 +1361,8 @@ def run_ba(device):
         "cost falls": cost1 < cost0,
         "K1 launched at least once per PCG iteration":
             launches >= sum(pcg_iters) and launches > 0,
+        "BA build kernel held against its plain version on the rounds' "
+        "first input": build_rec is not None and build_rec["PC"] == 8,
         "rotation error no worse": rot1 <= rot0,
         "center error no worse": cen1 <= cen0,
     }
@@ -1190,7 +1552,8 @@ def run_sfm(device, root, profile=False):
         done.add(name)
 
     out = os.path.join(root, "sparse")
-    with k1_by_stage(done, k1_inputs_at, by_stage) as shapes:
+    with k1_by_stage(done, k1_inputs_at, by_stage) as shapes, \
+            build_first_input(lambda *_: True) as kept:
         pipe, _, images, _ = run_pipeline(dbpath, out, device,
                                           stage_hook=hook)
     graphs = pcg_graphs(debug.REGISTRY.roots("mapper")[-1], shapes)
@@ -1207,6 +1570,7 @@ def run_sfm(device, root, profile=False):
     k1_sfm = {stage: k1_sfm_check(stage, args, device)
               for stage, args in k1_inputs_at.items()}
     del k1_inputs_at
+    build_rec = build_path_case("sfm_ba_first_input", kept)
     rot, ate = sfm_errors(images, gt)
     rec = dict(
         pipe, points=SFM_POINTS, pairs=n_pairs, matches=n_matches,
@@ -1217,7 +1581,7 @@ def run_sfm(device, root, profile=False):
         k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
             "max_abs_err"),
         k1_on_mapper_inputs=k1_sfm, k1_launches_by_stage=by_stage,
-        pcg_graphs=graphs,
+        pcg_graphs=graphs, ba_build=build_rec,
         relpose_profile=relpose_prof,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
@@ -1237,6 +1601,8 @@ def run_sfm(device, root, profile=False):
             rec["k1_launches_total"] == gp_launches + ba_launches,
         "K1 held against its plain version on a GP and a BA input":
             set(k1_sfm) == {"global_positioning", "bundle_adjustment"},
+        "BA build kernel held against its plain version on BA's first "
+        "input": build_rec is not None and build_rec["PC"] == 8,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1270,7 +1636,9 @@ def run_sfm_retri(device, dbpath, gt):
     torch.cuda.reset_peak_memory_stats()
     k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
     with k1_tally(lambda W, C: W.shape[1] if in_retri() else None,
-                  retri_by_pc, keep_pc2_input) as shapes:
+                  retri_by_pc, keep_pc2_input) as shapes, \
+            build_first_input(lambda problem, _: problem.cam_dim == 2) \
+            as kept:
         t0 = time.perf_counter()
         view_graph, cameras, images, feature_name = read_colmap_database(dbpath)
         cameras, images, tracks, timings = solve_global_mapper(
@@ -1285,6 +1653,7 @@ def run_sfm_retri(device, dbpath, gt):
 
     k1_pc2 = (k1_sfm_check("retriangulation (PC = 2)", retri_input["args"],
                            device) if retri_input else None)
+    build_rec = build_path_case("retri_pc2_first_input", kept)
     rot, ate = sfm_errors(images, gt)
     gp = launches_at.get("global_positioning", 0)
     ba_ = launches_at.get("bundle_adjustment", gp)
@@ -1306,7 +1675,7 @@ def run_sfm_retri(device, dbpath, gt):
         k1_launches_gp=gp, k1_launches_ba=ba_ - gp,
         k1_launches_retri=retri - ba_, k1_launches_retri_by_pc=retri_by_pc,
         k1_launches_total=launches, k1_plain_calls=plain_calls,
-        k1_on_retri_pc2_input=k1_pc2, pcg_graphs=graphs,
+        k1_on_retri_pc2_input=k1_pc2, pcg_graphs=graphs, ba_build=build_rec,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
         card=card_line())
@@ -1324,6 +1693,8 @@ def run_sfm_retri(device, dbpath, gt):
             retri_by_pc.get(2, 0) > 0,
         "K1 held against its plain version on a PC = 2 input":
             k1_pc2 is not None and k1_pc2["PC"] == 2,
+        "BA build kernel held against its plain version on a PC = 2 input":
+            build_rec is not None and build_rec["PC"] == 2,
         "K1 launched only in GP, BA and retriangulation": launches == retri,
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -1507,9 +1878,12 @@ def run_scale(device, root, scene=SCALE_2K):
         return state, history
 
     sparse = os.path.join(root, "sparse")
+    global_table = lambda problem, params: not ba_closed.shared_table(
+        params.cam["q"].shape[0], problem.cam_dim, params.pts.dtype)
     ba.optimize = ba_round
     try:
-        with k1_by_stage(done, first_input, launches) as shapes:
+        with k1_by_stage(done, first_input, launches) as shapes, \
+                build_first_input(global_table) as kept:
             pipe, _, images, tracks = run_pipeline(dbpath, sparse, device,
                                                    stage_hook=hook)
     finally:
@@ -1536,11 +1910,13 @@ def run_scale(device, root, scene=SCALE_2K):
     k1_rec = {stage: k1_sfm_check(stage, args, device)
               for stage, args in first_input.items()}
     first_input.clear()
+    build_rec = build_path_case("scale_ba_first_global_input", kept, reps=5)
     rec = dict(
         pipe, scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
         read_model_s=read_model_s, eval_s=eval_s,
         model_images=len(imgs_m), model_points=len(pts_m),
         k1_launches=launches, k1=k1_rec, pcg_graphs=graphs,
+        ba_build=build_rec,
         rot_err_deg_mean=float(rot.mean()), rot_err_deg_max=float(rot.max()),
         ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()),
         errors_by_stage=errors_at, eval=scores, card=card_line())
@@ -1568,6 +1944,9 @@ def run_scale(device, root, scene=SCALE_2K):
             set(k1_rec) == {"global_positioning", "bundle_adjustment"},
     }
     if scene is SCALE_2K:
+        checks["BA build kernel held against its plain version on an "
+               "input of its global-atomic branch"] = (
+            build_rec is not None and build_rec["branch"] == "global")
         checks["BA's first K1 input takes the global-atomic branch"] = (
             ba_first.get("branch") == "global" and not k1.shared_table(
                 ba_first.get("cams", 0), 8, torch.float32))
@@ -3834,6 +4213,27 @@ def k1_entry(cases, ba_rec, gp_rec, sfm_rec, retri_rec, dist_rec,
                                      for c in f32_cases))
 
 
+def build_entry(cases, path_cases, launches):
+    """The BA build kernel in the kernels line: a port kernel with no TPU
+    counterpart, in place of ``build_system``'s ``vmap(jacfwd)`` path;
+    ``path_cases`` are the checks on the inputs the phases gave it."""
+    main_case = next(c for c in cases if c["case"] == "ring_200_ba")
+    keys = ("dtype", "PC", "rows", "cams", "branch", "max_err_over_bound",
+            "max_abs_err", "ms", "bound_ms", "share")
+    return kernel_entry(
+        "ba_build", "instantsfm_tpu_torch/csrc/ba_build.cu", None,
+        sum(v["build"] for v in launches.values()), main_case,
+        replaces_fn="instantsfm_tpu_torch/solve/block_lm.py::build_system "
+                    "(its vmap(jacfwd) path; the JAX package's is jax.jacfwd, "
+                    "no Pallas kernel)",
+        loss_ms=main_case["loss_ms"], share=main_case["share"],
+        max_err_over_bound=max(c["max_err_over_bound"]
+                               for c in [*cases, *path_cases.values()]),
+        path_inputs={phase: {k: c[k] for k in keys}
+                     for phase, c in path_cases.items()},
+        launches_by_entry_point=launches)
+
+
 def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
               dist_rec, bench_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
@@ -3906,27 +4306,41 @@ def main(argv=None):
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    build.build_all(["schur_wchain", "composite_tiles"])
+    build.build_all(["schur_wchain", "composite_tiles", "ba_build"])
     build_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.txt"), "w") as f:
         for name, info in build.BUILD_INFO.items():
             f.write(f"== {name} ({info['seconds']:.1f} s)\n{info['log']}\n")
     log(f"build: {build_s:.1f} s (nvcc, sm_90a, sources built in parallel)")
+    build_launches, seen = {}, dict(ba_closed.LAUNCHES)
+
+    def launched(phase):
+        """The BA build kernel's launches (build, loss mode) in ``phase``
+        (the checks' own launches are not counted)."""
+        build_launches[phase] = {k: v - seen[k]
+                                 for k, v in ba_closed.LAUNCHES.items()}
+        seen.update(ba_closed.LAUNCHES)
+
     k1_cases = k1_parity(device)
     k23_hand = k23_parity(device)
+    build_cases = build_parity(device)
     first_jacfwd(device)
     # --profile: also print the BA phase's spans and reads (seconds, counts)
     debug.REGISTRY.totals.clear()
     ba_rec, gt = run_ba(device)
+    launched("ba")
     if args.profile:
         log("BA_SPANS " + json.dumps(debug.REGISTRY.totals))
     gp_rec = run_gp_step(device, gt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as root:
         sfm_rec, sfm_gt, dbpath = run_sfm(device, root, profile=args.profile)
+        launched("sfm")
         retri_rec = run_sfm_retri(device, dbpath, sfm_gt)
+        launched("sfm_retri")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as root:
         scale_rec = run_scale(device, root)
+    launched("scale")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pixels_") as pix_work:
         pix_rec, pix_gt = run_pixels(device, pix_work)
         run_tail(device, pix_work, pix_gt)
@@ -3939,15 +4353,21 @@ def main(argv=None):
             opts_rec = run_gs_opts(device, gs_root, gs_rec, args.profile)
             dist_rec = run_dist(device, gs_root, pix_work, pix_gt, pix_rec,
                                 gt, gp_rec)
+    launched("pixels_gs_dist")
     k23_main = k23_case("gs_main", *tiles, reps=20, allow_ties=True)
     bench_rec = run_bench(device)
+    launched("bench")
     run_installed(device)
 
     kernels = [k1_entry(k1_cases, ba_rec, gp_rec, sfm_rec, retri_rec,
                         dist_rec, scale_rec, bench_rec)] + [
         k23_entry(which, k23_main[which], k23_hand, gs_rec, pix_rec, opts_rec,
                   dist_rec, bench_rec)
-        for which in (0, 1)]
+        for which in (0, 1)] + [build_entry(build_cases, {
+            phase: rec["ba_build"] for phase, rec in (
+                ("ba", ba_rec), ("sfm", sfm_rec), ("sfm_retri", retri_rec),
+                ("scale", scale_rec)) if rec.get("ba_build")},
+            build_launches)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

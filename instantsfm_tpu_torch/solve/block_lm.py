@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
+from instantsfm_tpu_torch.solve import ba_closed
 from instantsfm_tpu_torch.solve import robust as robust_mod
 from instantsfm_tpu_torch.solve.blocked import gather_pt, seg_by_pt
 from instantsfm_tpu_torch.solve.pcg import graph_pcg, pcg
@@ -63,6 +64,9 @@ class BlockProblem(NamedTuple):
                 scale_ref, obs) -> r[R], for ONE observation (the engine
     vmaps it); only evaluated and differentiated at delta = 0.
     retract_cam(cam_blocks, delta[C, PC]) -> cam_blocks (exact update).
+    reproj: (camera model id, optimize_poses) where the residual is bundle
+    adjustment's reprojection (``problems.make_ba_problem``), whose system
+    ``solve/ba_closed.py`` builds in closed form; None for any other.
     """
     residual_fn: Callable
     retract_cam: Callable
@@ -70,6 +74,7 @@ class BlockProblem(NamedTuple):
     res_dim: int
     has_points: bool = True
     has_scales: bool = False
+    reproj: Optional[tuple] = None
 
 
 class Observations(NamedTuple):
@@ -152,7 +157,11 @@ def _local_residual(problem: BlockProblem):
 def compute_loss_vec(problem: BlockProblem, params: Params,
                      obs: Observations, kernel: robust_mod.RobustKernel,
                      buckets: tuple = ()) -> torch.Tensor:
-    """Per-observation robust loss rho(||r_o||^2), zeroed on invalid rows."""
+    """Per-observation robust loss rho(||r_o||^2), zeroed on invalid rows:
+    in closed form where ``ba_closed.covers`` the problem (on the card the
+    build kernel's loss mode), else through ``vmap``."""
+    if ba_closed.covers(problem, kernel, buckets):
+        return ba_closed.loss_vec(problem, params, obs, kernel)
     zero = params.pts.new_zeros(problem.cam_dim + 4)
     f = _local_residual(problem)
     cam_g, pt_g = _gathered(params, obs)
@@ -175,10 +184,32 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
                  buckets: tuple = (), group=None,
                  replicated_points: bool = False) -> NormalSystem:
     """Evaluate residuals + per-block Jacobians, apply robust whitening,
-    form the per-observation products and reduce them into U/V/W/g."""
+    form the per-observation products and reduce them into U/V/W/g.
+
+    Where ``ba_closed.covers`` the problem (a declared reprojection
+    residual of a covered camera model and robust kernel, on a bucketed
+    layout) the closed form builds it (on the card one kernel launch),
+    counted in the run counter ``lm_build_closed``; any other problem takes
+    the ``vmap(jacfwd)`` path below, counted in ``lm_build_autodiff``."""
     PC = problem.cam_dim
     C = _num_cams(params)
     O_n = obs.valid.shape[0]
+    pt_group = group if replicated_points else None
+    if ba_closed.covers(problem, kernel, buckets):
+        _dbg.stat_add("lm_build_closed", 1)
+        Ug, V, g_pt, W, loss_vec = ba_closed.build(problem, params, obs,
+                                                   kernel, num_points, buckets)
+        cost = _ar(torch.sum(loss_vec), group)
+        Ug = _ar(Ug, group)
+        # no scale block: the solve reads none of its products
+        zero = W.new_zeros(())
+        return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC),
+                            V=_ar(V, pt_group), W=W, g_cam=Ug[:, PC * PC:],
+                            g_pt=_ar(g_pt, pt_group), Hss=zero.expand(O_n),
+                            Jc_s=zero.expand(O_n, PC),
+                            Jp_s=zero.expand(O_n, 3), g_s=zero.expand(O_n),
+                            cost=cost, loss_vec=loss_vec)
+    _dbg.stat_add("lm_build_autodiff", 1)
     zero = params.pts.new_zeros(PC + 4)
     f = _local_residual(problem)
 
@@ -221,7 +252,6 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
 
     Ug = _ar(_seg_by_cam(torch.cat([U_o.reshape(O_n, PC * PC), gc_o], dim=1),
                          obs.cam_idx, C), group)
-    pt_group = group if replicated_points else None
     V = _ar(_seg_by_pt(V_o, obs.pt_idx, num_points, buckets), pt_group)
     g_pt = _ar(_seg_by_pt(gp_o, obs.pt_idx, num_points, buckets), pt_group)
     return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC), V=V,

@@ -4,7 +4,9 @@ Counterpart of ``instantsfm_tpu/solve/problems.py``:
 
 * Bundle adjustment: per-observation reprojection residual
   ``project(R(q) X + t) - xy`` with per-camera-model projection; principal
-  point frozen; pose in the 6-dof tangent.
+  point frozen; pose in the 6-dof tangent.  The problem declares which
+  residual it is (``reproj``), so the engine builds its system in closed
+  form (``solve/ba_closed.py``) where that covers the camera model.
 * Global positioning: residual ``(t_obs - s * (X - c)) * w``; unknowns are
   camera centers, points and per-observation scales.
 
@@ -56,7 +58,8 @@ def make_ba_problem(model_id: int, optimize_poses: bool = True) -> BlockProblem:
 
     return BlockProblem(residual_fn=residual_fn, retract_cam=retract_cam,
                         cam_dim=PC, res_dim=2, has_points=True,
-                        has_scales=False)
+                        has_scales=False,
+                        reproj=(int(model_id), bool(optimize_poses)))
 
 
 @lru_cache(maxsize=None)

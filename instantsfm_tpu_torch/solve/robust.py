@@ -15,9 +15,12 @@ import torch
 
 class RobustKernel(NamedTuple):
     """weight maps squared block-residual norm -> IRLS weight w = rho'(s);
-    loss maps squared norm -> rho(s)."""
+    loss maps squared norm -> rho(s).  ``kind`` is ``("huber", delta)`` for
+    Huber's kernel, the one a closed-form build evaluates itself
+    (``solve/ba_closed.py``); empty for any other."""
     weight: Callable
     loss: Callable
+    kind: tuple = ()
 
 
 @lru_cache(maxsize=None)
@@ -38,7 +41,7 @@ def huber(delta: float) -> RobustKernel:
         return torch.where(s <= d2, torch.ones_like(s),
                            delta / torch.sqrt(s.clamp_min(1e-30)))
 
-    return RobustKernel(weight=weight, loss=loss)
+    return RobustKernel(weight=weight, loss=loss, kind=("huber", delta))
 
 
 @lru_cache(maxsize=None)

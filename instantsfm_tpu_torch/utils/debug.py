@@ -17,14 +17,16 @@ Counterpart of ``instantsfm_tpu/utils/debug.py``.
   is not its parent's self time and names the device's idle gap in a trace.
 * A span that closes with no span open above it is a root: a record of
   numbers (its name and seconds, the count, total and self seconds of
-  every span, and the count and wait of every read site, gathered while it
-  was open) goes into a ring of the last ``RING_SIZE`` roots, and
-  ``roots_closed`` counts every root.  Spans on other threads open their
-  profiler scope and keep nothing.
+  every span, the count and wait of every read site and the sum of every
+  run counter, gathered while it was open) goes into a ring of the last
+  ``RING_SIZE`` roots, and ``roots_closed`` counts every root.  Spans on
+  other threads open their profiler scope and keep nothing.
 
 ``STATS`` holds run counters (LM iterations a solve, PCG iterations a
-damped solve, ...), appended by the solvers and drained by the measuring
-scripts and the benchmark's units; ``drain_stats`` leaves the ring alone.
+damped solve, which path built an LM step's system, ...), appended by the
+solvers and drained by the measuring scripts and the benchmark's units;
+``drain_stats`` leaves the ring alone.  A number appended on the main
+thread while a root is open is also summed into that root's record.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ STATS: dict = {}
 
 def stat_add(name: str, value) -> None:
     STATS.setdefault(name, []).append(value)
+    REGISTRY.count(name, value)
 
 
 def drain_stats() -> dict:
@@ -72,6 +75,7 @@ class Registry:
         self.totals = {}
         self._stack = []
         self._open = {}          # the open root's spans, as in ``totals``
+        self._counts = {}        # the open root's run counters, summed
         self._main = threading.main_thread().ident
 
     def span(self, name: str) -> "_Span":
@@ -82,6 +86,14 @@ class Registry:
         ``site``."""
         with _Span(self, "read:" + site):
             return _host(x)
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` to the open root's counter ``name`` (on the main
+        thread, while a root is open); a value that is no Python number,
+        such as a dict of counts, is not summed."""
+        if (self._stack and isinstance(value, (int, float))
+                and threading.get_ident() == self._main):
+            self._counts[name] = self._counts.get(name, 0) + value
 
     def roots(self, name: str) -> list:
         """The ring's records of the roots named ``name``, oldest first."""
@@ -94,6 +106,7 @@ class Registry:
 
     def _close_root(self, name: str, seconds: float) -> None:
         spans, self._open = self._open, {}
+        counters, self._counts = self._counts, {}
         reads = {}
         for key, (n, total, own) in spans.items():
             if key.startswith("read:"):
@@ -106,7 +119,8 @@ class Registry:
                 t[1] += total
                 t[2] += own
         self.ring.append(dict(name=name, seconds=seconds, spans={
-            k: tuple(v) for k, v in spans.items()}, reads=reads))
+            k: tuple(v) for k, v in spans.items()}, reads=reads,
+            counters=counters))
         self.roots_closed += 1
 
 

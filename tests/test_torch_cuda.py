@@ -323,6 +323,190 @@ def test_pcg_graph_captures_once_and_counts_k1_replays():
     assert "pcg.iter" not in spans2
 
 
+BUILD_CASES = [("SIMPLE_RADIAL", True, 200), ("SIMPLE_RADIAL", False, 200),
+               ("SIMPLE_RADIAL", True, 2000), ("SIMPLE_RADIAL", False, 2000),
+               ("SIMPLE_RADIAL", False, 4000), ("SIMPLE_PINHOLE", True, 200),
+               ("SIMPLE_PINHOLE", False, 4000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,poses,C", BUILD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ba_build_kernel_matches_reference(model, poses, C, dtype):
+    """The BA build kernel, both modes, against its plain version on the
+    same card inputs (``chip_smoke.build_check``), field by field with U
+    and g_cam apart: float64 within 1e-9 of each field's largest entry and
+    of the entry; float32 at each entry within 4 times the float32 plain
+    version's own error against the float64 plain version plus 32 unit
+    roundoffs of the entry's rounding count (the camera sums' atomics and
+    the point sums' butterfly add in other orders, and the keypoint's
+    subtraction from a ~500 px projection rounds either way).  C = 200
+    keeps the cameras and their sums in shared memory; C = 2,000 and 4,000
+    read cameras through L1 and sum with global atomics; tracks of 2 to
+    700 rows (L up to 1,024, past a block), padded tracks and invalid
+    rows."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import ba_closed, robust
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    lengths = rng.choice([2, 3, 5, 8, 13, 30, 64, 300, 700], size=3000,
+                         p=[.2, .2, .2, .15, .1, .06, .05, .03, .01])
+    inputs = chip_smoke.build_inputs(cm.MODEL_NAME_TO_ID[model], poses, C,
+                                     lengths, dt, "cuda")
+    problem, params, obs, buckets = inputs
+    assert ba_closed.shared_table(C, problem.cam_dim, dt) == (C == 200)
+    assert not obs.valid.all() and max(b[3] for b in buckets) > 256
+    T = params.pts.shape[0]
+    before = dict(ba_closed.LAUNCHES)
+    ba_closed.build(problem, params, obs, robust.huber(1.0), T, buckets)
+    ba_closed.loss_vec(problem, params, obs, robust.huber(1.0))
+    assert ba_closed.LAUNCHES == {"build": before["build"] + 1,
+                                  "loss": before["loss"] + 1}
+    worst, _, _ = chip_smoke.build_check(model, problem, params, obs,
+                                         robust.huber(1.0), buckets)
+    assert worst <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,poses", [("SIMPLE_RADIAL", True),
+                                         ("SIMPLE_RADIAL", False),
+                                         ("SIMPLE_PINHOLE", True),
+                                         ("SIMPLE_PINHOLE", False)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ba_build_kernel_at_the_shared_tables_edge(model, poses, dtype):
+    """At the most cameras ``ba_closed.shared_table`` keeps in shared
+    memory (the block's largest request, the two tables at K1's 96 KB) and
+    at one more (global atomics), the kernel launches and matches its
+    plain version."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import ba_closed, robust
+
+    dt = getattr(torch, dtype)
+    PC = (6 if poses else 0) + (1 if model == "SIMPLE_PINHOLE" else 2)
+    edge = max(C for C in range(1, 8192)
+               if ba_closed.shared_table(C, PC, dt))
+    lengths = np.random.default_rng(2).choice([2, 3, 8, 30], size=3000)
+    for C in (edge, edge + 1):
+        problem, params, obs, buckets = chip_smoke.build_inputs(
+            cm.MODEL_NAME_TO_ID[model], poses, C, lengths, dt, "cuda")
+        assert problem.cam_dim == PC
+        assert ba_closed.shared_table(C, PC, dt) == (C == edge)
+        worst, _, _ = chip_smoke.build_check(f"{model} C={C}", problem,
+                                             params, obs, robust.huber(1.0),
+                                             buckets)
+        assert worst <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,poses", [("SIMPLE_RADIAL", True),
+                                         ("SIMPLE_RADIAL", False),
+                                         ("SIMPLE_PINHOLE", True)])
+def test_ba_build_kernel_keeps_nan(model, poses):
+    """A NaN point gives its rows a NaN loss in the kernel's loss mode and
+    NaN sums in its build, as in the plain version: the LM's accept test
+    rejects a candidate with NaN parameters only if its loss is NaN."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import ba_closed, robust
+
+    problem, params, obs, buckets = chip_smoke.build_inputs(
+        cm.MODEL_NAME_TO_ID[model], poses, 20, [4] * 64, torch.float32,
+        "cuda")
+    kernel = robust.huber(1.0)
+    row = int(torch.nonzero(obs.valid)[0, 0])
+    pts = params.pts.clone()
+    pts[obs.pt_idx[row].long()] = float("nan")
+    params = params._replace(pts=pts)
+    got = ba_closed.loss_vec(problem, params, obs, kernel)
+    want = ba_closed.loss_vec_reference(problem, params, obs, kernel)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[row])
+    built = ba_closed.build(problem, params, obs, kernel, pts.shape[0],
+                            buckets)
+    assert torch.isnan(built[0]).any() and torch.isnan(built[4][row])
+
+
+@pytest.mark.cuda
+def test_ba_build_kernel_rejects_bad_inputs():
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import ba_closed, robust
+
+    problem, params, obs, buckets = chip_smoke.build_inputs(
+        cm.SIMPLE_RADIAL, True, 20, [4] * 64, torch.float32, "cuda")
+    kernel = robust.huber(1.0)
+    T = params.pts.shape[0]
+    with pytest.raises(TypeError):              # int64 camera indices
+        ba_closed.build(problem, params, obs._replace(
+            cam_idx=obs.cam_idx.long()), kernel, T, buckets)
+    with pytest.raises(TypeError):              # points of another dtype
+        ba_closed.build(problem, params._replace(pts=params.pts.double()),
+                        obs, kernel, T, buckets)
+    with pytest.raises(ValueError):             # buckets that miss rows
+        ba_closed.build(problem, params, obs, kernel, T, buckets[:-1])
+    for other in (robust.cauchy(1.0), robust.geman_mcclure(1.0)):
+        with pytest.raises(ValueError):         # no formula for the kernel
+            ba_closed.build(problem, params, obs, other, T, buckets)
+    with pytest.raises(ValueError):             # intrinsics too short
+        ba_closed.loss_vec(problem, params._replace(cam=dict(
+            params.cam, intr=params.cam["intr"][:, :3].contiguous())), obs,
+            kernel)
+
+
+@pytest.mark.cuda
+def test_lm_steps_kernel_path_match_plain_path(monkeypatch):
+    """Twenty LM steps on a 20-camera ring in float64 on the card, the
+    kernel's path against the closed form's plain version (the same
+    formulas in torch, ``index_add_`` camera sums): the final costs agree
+    to 1e-9 relative and the parameters to 1e-6; PCG stops on a residual
+    test, so the sums' order moves each step's iterate by rounding."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.solve import ba_closed, block_lm, robust
+    from instantsfm_tpu_torch.solve.blocked import bucketize_problem
+    from instantsfm_tpu_torch.solve.problems import make_ba_problem
+
+    cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                       num_pts=9000)
+    params, obs = chip_smoke.scene_problem(cameras, images, tracks,
+                                           torch.float64, "cuda")
+    params, obs, buckets, _ = bucketize_problem(params, obs)
+    problem = make_ba_problem(cameras.uniform_model_id)
+    kernel = robust.huber(1.0)
+    cfg = block_lm.LMConfig(solver="pcg")
+
+    def steps():
+        z = torch.zeros((), dtype=torch.float64, device="cuda")
+        state = block_lm.LMState(params, z + 1e-4, z + float("inf"), z, z)
+        for _ in range(20):
+            state = block_lm.lm_step(problem, kernel, cfg, state, obs,
+                                     buckets=buckets)
+        return state
+
+    launches = ba_closed.LAUNCHES["build"]
+    got = steps()
+    assert ba_closed.LAUNCHES["build"] == launches + 20
+    monkeypatch.setattr(ba_closed, "build", lambda *a: (
+        ba_closed.build_reference(*a)))
+    monkeypatch.setattr(ba_closed, "loss_vec", ba_closed.loss_vec_reference)
+    want = steps()
+    print("final cost", float(got.cost), float(want.cost))
+    np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-9)
+    for k in ("q", "t", "intr"):
+        np.testing.assert_allclose(got.params.cam[k].cpu().numpy(),
+                                   want.params.cam[k].cpu().numpy(),
+                                   atol=1e-6)
+    np.testing.assert_allclose(got.params.pts.cpu().numpy(),
+                               want.params.pts.cpu().numpy(), atol=1e-6)
+
+
 def _rel_close(got, want, rel):
     scale = max(want.abs().max().item(), 1e-30)
     torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)
