@@ -11,11 +11,12 @@ also between CUDA events.
 The roofline keys carry ``bench_gs.py``'s names (``roofline_frac``,
 ``mfu``, ``membw_util``, ``bound``, ``chip``, ``gflops_per_iter``,
 ``hbm_gb_per_iter``), but the count is analytic, not XLA's cost model:
-``utils/roofline.py::gs_step_cost`` on the step's own data-dependent counts
-(tile intersections, the compositing's entered chunks and live pairs, read
-after the timed steps by ``step.work()``), and ``roofline_frac`` is its
-bound over the median step.  ``roofline_parts`` gives each part's own bound
-in ms; ``bound`` names the binding resource (bytes, operations or sfu).
+the benchmark's frozen ``gs_step_cost`` (``sfmbench/yardstick/gs_roofline.py``)
+on the step's own data-dependent counts (tile intersections, the
+compositing's entered chunks and live pairs, read after the timed steps by
+``step.work()``), and ``roofline_frac`` is its bound over the median step.
+``roofline_parts`` gives each part's own bound in ms; ``bound`` names the
+binding resource (bytes, operations or sfu).
 
     python3 bench_gs_torch.py
 
@@ -25,9 +26,11 @@ Prints ONE JSON line last; needs a CUDA card and exits non-zero without one.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,8 +38,17 @@ from torch.profiler import record_function
 
 from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.gs import rasterize, splats as splats_mod, ssim
-from instantsfm_tpu_torch.utils import bench, roofline
+from instantsfm_tpu_torch.utils import bench
 from instantsfm_tpu_torch.utils.device import full_f32
+
+# the benchmark's frozen count of the work, after this repo's own modules
+# on the path: ``sfmbench`` has a ``tests`` of its own
+SFMBENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sfmbench")
+if SFMBENCH not in sys.path:
+    sys.path.append(SFMBENCH)
+from yardstick.gs_roofline import (GSStepCost, bound_s,  # noqa: E402
+                                   gs_step_cost)
+from yardstick.roofline import chip_spec  # noqa: E402
 
 G, W, H = 100_000, 800, 608
 SH_DEGREE = 3
@@ -55,7 +67,7 @@ PART_KERNELS = {"composite_fwd_kernel": "k2", "composite_bwd_kernel": "k3"}
 
 def step_work(means, quats, scales, opac, sh, viewmat, K, width, height,
               tiles_per_gauss=None, tile_capacity=None):
-    """The counts ``roofline.gs_step_cost`` takes for the step's view of
+    """The counts ``gs_step_cost`` takes for the step's view of
     these gaussians: the tile intersections, those in the tiles' windows,
     and the compositing's entered chunks and live pairs (a forward render,
     K2 on a card).  The budgets default to the step's: none, every pair
@@ -127,11 +139,50 @@ def setup(num_gaussians=G, width=W, height=H, seed=0, device="cuda"):
     return step
 
 
+class GSRoofline(NamedTuple):
+    flops: float
+    sfu: float
+    hbm_bytes: float
+    t_light: float        # seconds: the largest of the three times
+    mfu: float            # measured FLOP/s over the float32 peak
+    membw_util: float     # measured bytes/s over the memory rate
+    roofline_frac: float  # t_light / t_measured (1.0 == speed of light)
+    bound: str            # "bytes" | "operations" | "sfu"
+    chip: str
+    parts_ms: dict        # part -> its own bound, ms
+
+
+def part_bounds_ms(cost: GSStepCost, spec=None) -> dict:
+    """Each part's own bound in ms on ``spec`` (default: the card in
+    use)."""
+    spec = spec or chip_spec()
+    return {k: bound_s(p.hbm_bytes, p.flops, p.sfu, spec) * 1e3
+            for k, p in cost.parts.items()}
+
+
+def analyze_gs(cost: GSStepCost, t_step: float, spec=None) -> GSRoofline:
+    """Roofline of one 3DGS step of ``cost`` measured at ``t_step``
+    seconds on ``spec`` (default: the card in use).  The share is not
+    clamped: above 1.0 the count is wrong."""
+    spec = spec or chip_spec()
+    times = {"bytes": cost.hbm_bytes / spec.peak_bw,
+             "operations": cost.flops / spec.peak_flops_f32,
+             "sfu": cost.sfu / spec.peak_sfu}
+    bound = max(times, key=times.get)
+    t_light = times[bound]
+    return GSRoofline(
+        flops=cost.flops, sfu=cost.sfu, hbm_bytes=cost.hbm_bytes,
+        t_light=t_light, mfu=cost.flops / t_step / spec.peak_flops_f32,
+        membw_util=cost.hbm_bytes / t_step / spec.peak_bw,
+        roofline_frac=t_light / t_step, bound=bound, chip=spec.name,
+        parts_ms=part_bounds_ms(cost, spec))
+
+
 def roofline_record(work, t_step, spec=None):
     """``bench_gs.py``'s roofline keys for a step of ``work`` (``step.work()``)
     measured at ``t_step`` seconds on ``spec`` (default: the card in use),
     with each part's own bound in ms and the counts."""
-    rl = roofline.analyze_gs(roofline.gs_step_cost(**work), t_step, spec)
+    rl = analyze_gs(gs_step_cost(**work), t_step, spec)
     return {"roofline_frac": rl.roofline_frac, "mfu": rl.mfu,
             "membw_util": rl.membw_util, "bound": rl.bound, "chip": rl.chip,
             "gflops_per_iter": rl.flops / 1e9,

@@ -13,12 +13,13 @@ drives it.
 Timing: 3 warm steps, then ``BENCH_REPEATS`` (5) repeats of 20 steps from
 the perturbed start, each ending in ``torch.cuda.synchronize()``;
 ``ba_iters_per_sec`` is 20 over the median repeat.  ``roofline_frac`` is
-the analytic bound of the step (``utils/roofline.py::lm_step_cost`` at the
-PCG iterations the steps ran, camera sums by ``index_add_`` and K1, not
-one-hot products) over the median step, against the H100's published
-peaks; ``bound`` names the binding term.  K1 launches and host reads a
-step (``host_syncs_per_step``: the reads of ``utils/debug.read`` in the
-timed steps) are counted.
+the analytic bound of the step (the benchmark's frozen count,
+``sfmbench/yardstick/roofline.py::lm_step_cost``, at the PCG iterations
+the steps ran, camera sums by ``index_add_`` and K1, not one-hot products)
+over the median step, against the H100's published peaks; ``bound`` names
+the binding term.  K1 launches and host reads a step
+(``host_syncs_per_step``: the reads of ``utils/debug.read`` in the timed
+steps) are counted.
 
 Knobs: ``BENCH_BA_CAMS``, ``BENCH_BA_PTS``, ``BENCH_BA_OBS_PER_PT`` (e.g.
 500 / 1000000 for the T&T shape) and ``BENCH_REPEATS``.
@@ -34,6 +35,7 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,11 +46,55 @@ from instantsfm_tpu_torch.solve import block_lm, robust
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import bucketize_problem
 from instantsfm_tpu_torch.solve.problems import make_ba_problem
-from instantsfm_tpu_torch.utils import bench, debug, roofline
+from instantsfm_tpu_torch.utils import bench, debug
 from instantsfm_tpu_torch.utils.device import full_f32
+
+# the benchmark's frozen count of the work, after this repo's own modules
+# on the path: ``sfmbench`` has a ``tests`` of its own
+SFMBENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sfmbench")
+if SFMBENCH not in sys.path:
+    sys.path.append(SFMBENCH)
+from yardstick.roofline import (LMStepCost, chip_spec,  # noqa: E402
+                                lm_step_cost)
 
 CFG = block_lm.LMConfig(pcg_iters=25, pcg_tol=1e-4, max_rejects=2)
 N_WARM, N = 3, 20
+
+
+class Roofline(NamedTuple):
+    flops: float
+    hbm_bytes: float
+    t_light: float         # seconds: max(compute-bound, memory-bound) time
+    mfu: float             # measured FLOP/s over the float32 peak
+    membw_util: float      # measured bytes/s over the memory rate
+    roofline_frac: float   # t_light / t_measured (1.0 == speed of light)
+    bound: str             # "memory" | "compute", the binding term
+    chip: str
+
+
+def analyze_analytic(cost: LMStepCost, t_step: float, spec=None) -> Roofline:
+    """Roofline of one step of ``cost`` measured at ``t_step`` seconds on
+    ``spec`` (default: the card in use): the larger of FLOPs over the
+    float32 peak and bytes over the memory rate, over the step.  As in the
+    JAX package, a share past 1.02 means the count over-counts and is
+    reported as NaN, and a share under 0.25 is marked as a step that
+    launches and latency bound."""
+    spec = spec or chip_spec()
+    t_c = cost.flops / spec.peak_flops_f32
+    t_m = cost.hbm_bytes / spec.peak_bw
+    t_light = max(t_c, t_m)
+    frac = t_light / t_step if t_step > 0 else 0.0
+    bound = "compute" if t_c >= t_m else "memory"
+    if frac > 1.02:
+        bound = "unreliable (analytic model over-counts)"
+        frac = float("nan")
+    elif frac < 0.25:
+        bound += " (model lower-bound; step is launch/latency dominated)"
+    return Roofline(
+        flops=cost.flops, hbm_bytes=cost.hbm_bytes, t_light=t_light,
+        mfu=cost.flops / t_step / spec.peak_flops_f32,
+        membw_util=cost.hbm_bytes / t_step / spec.peak_bw,
+        roofline_frac=min(frac, 1.0), bound=bound, chip=spec.name)
 
 
 def ba_arrays(num_cams=200, num_pts=50_000, obs_per_pt=8, seed=0):
@@ -163,7 +209,7 @@ def measure(num_cams, num_pts, obs_per_pt, repeats, device):
 
     dt = float(np.median(times))
     pcg_per_step = sum(stats["pcg_iters"]) / steps
-    rl = roofline.analyze_analytic(roofline.lm_step_cost(
+    rl = analyze_analytic(lm_step_cost(
         O=int(obs.valid.shape[0]), C=num_cams, T=int(params.pts.shape[0]),
         PC=problem.cam_dim, res_dim=problem.res_dim, cg_iters=pcg_per_step,
         onehot_cam_reduce=False), dt / N)
@@ -184,7 +230,7 @@ def measure(num_cams, num_pts, obs_per_pt, repeats, device):
         "mfu_f32": rl.mfu,
         "membw_util": rl.membw_util,
         "chip": rl.chip,
-        "traffic_model": "analytic lower bound (utils/roofline.py::"
+        "traffic_model": "analytic lower bound (yardstick/roofline.py::"
                          "lm_step_cost, onehot_cam_reduce=False, cg_iters = "
                          "the PCG iterations a step ran)",
         "pcg_iters_per_step": pcg_per_step,

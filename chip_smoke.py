@@ -208,14 +208,21 @@ from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import (bucketize, bucketize_problem,
                                                 seg_by_pt)
 from instantsfm_tpu_torch.solve.problems import make_ba_problem, make_gp_problem
-from instantsfm_tpu_torch.utils import build, debug, roofline
-from instantsfm_tpu_torch.utils.roofline import (ALPHA_WORK, LIVE_WORK,
-                                                 RECORD_WORK, TEST_WORK)
+from instantsfm_tpu_torch.utils import build, debug
 from instantsfm_tpu_torch.utils.bench import card_line
 from instantsfm_tpu_torch.utils.device import full_f32
 
 from bench_e2e_torch import (RING_CAMERA, ring_image_name, ring_rotation,
                              run_pipeline, write_ring_db)
+
+# the benchmark's frozen counts of the work (``sfmbench/yardstick``), after
+# this repo's own modules on the path: ``sfmbench`` has a ``tests`` of its own
+SFMBENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sfmbench")
+if SFMBENCH not in sys.path:
+    sys.path.append(SFMBENCH)
+from yardstick import gs_roofline, roofline  # noqa: E402
+from yardstick.gs_roofline import (ALPHA_WORK, LIVE_WORK,  # noqa: E402
+                                   RECORD_WORK, TEST_WORK)
 
 OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = roofline.H100_SXM.peak_bw    # H100 SXM, NVIDIA data sheet
@@ -538,8 +545,6 @@ def ring_ba_inputs(dtype, device, seed=SEED):
     shape: the ``ring-200`` scene's own BA problem (``sfmbench/yardstick``:
     200 SIMPLE_RADIAL cameras, the points seen twice or more, every
     keypoint), at the true poses, bucketed."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "sfmbench"))
     from yardstick import ring
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "sfmbench", "configs", "ring-200.json")) as f:
@@ -1041,7 +1046,7 @@ def k23_bound(kname, attrs, work):
     """What the redesigned kernel must do on the arrays it is handed: a cull
     record per row of an entered chunk, a box test per (row, warp), the
     alpha terms per pair the cull keeps, and the live pairs' work
-    (``roofline.k23_bytes`` over the padded layout)."""
+    (``gs_roofline.k23_bytes`` over the padded layout)."""
     rows = work["chunks_entered"] * k23.CHUNK
     kept = work["pairs_after_cull"]
     live_ops, live_sfu = LIVE_WORK[kname]
@@ -1049,9 +1054,29 @@ def k23_bound(kname, attrs, work):
              + ALPHA_WORK[0] * kept + live_ops * work["live_pairs"])
     sfu = (RECORD_WORK[1] * rows + ALPHA_WORK[1] * kept
            + live_sfu * work["live_pairs"])
-    return roofline.bound_ms(
-        roofline.k23_bytes(kname, work, attrs.shape[0], attrs.shape[1:]),
+    return bound_ms(
+        gs_roofline.k23_bytes(kname, work, attrs.shape[0], attrs.shape[1:]),
         flops, sfu)
+
+
+def bound_ms(nbytes, flops, sfu):
+    """(bound_ms, bound_by, counts): the largest of the byte, FP32 and
+    special-function times of one piece of work on the H100's peaks."""
+    spec = roofline.H100_SXM
+    t_b = nbytes / spec.peak_bw
+    t_f = flops / spec.peak_flops_f32
+    t_s = sfu / spec.peak_sfu
+    t = max(t_b, t_f, t_s)
+    return (t * 1e3, "bytes" if t_b >= max(t_f, t_s) else "operations",
+            dict(mbytes=nbytes / 1e6, gflop=flops / 1e9, gsfu=sfu / 1e9,
+                 bytes_ms=t_b * 1e3, fp32_ms=t_f * 1e3, sfu_ms=t_s * 1e3))
+
+
+def k23_bound_all_pairs(kname, work, tiles, layout):
+    """``bound_ms`` of K2 or K3 over every pair of the entered chunks on
+    the arrays of ``layout`` (the first port's count)."""
+    return bound_ms(gs_roofline.k23_bytes(kname, work, tiles, layout),
+                    *gs_roofline.k23_all_pairs_work(kname, work))
 
 
 def _tied_tiles(logt_a, logt_b):
@@ -1164,7 +1189,7 @@ def k23_case(name, attrs, nchunks, ntx, reps, allow_ties=False,
                    ms_warm_l2=time_ms(kernel, reps),
                    plain_ms=time_ms(plain, 3, flush, queued=False),
                    bound_ms=bound_ms, bound_by=bound_by,
-                   bound_ms_all_pairs=roofline.k23_bound_all_pairs(
+                   bound_ms_all_pairs=k23_bound_all_pairs(
                        kname, work, attrs.shape[0], attrs.shape[1:])[0],
                    **counts)
         if kname == "K2":
@@ -3984,7 +4009,7 @@ def run_bench(device):
         "bench_gs_torch's roofline_frac and mfu in (0, 1]":
             share(bg["roofline_frac"]) and share(bg["mfu"]),
         "bench_gs_torch bounds every part": set(bg["roofline_parts"])
-            == set(roofline.GS_PARTS),
+            == set(gs_roofline.GS_PARTS),
         "bench_torch names the card": bt["device"]["kind"]
             == torch.cuda.get_device_name(0),
         "K1 launched under bench_torch, the BA and GP traces and the probe":

@@ -165,7 +165,9 @@ def pair_counts(attrs, logt, ntx: int, batch: int = 256):
     """What the reference compositing does on these inputs, read from the
     forward's log T: the chunks its walk entered, the (gaussian, pixel)
     pairs in them and the live pairs among those (alpha past the
-    thresholds).  Only measurements call it (``utils/roofline.py``)."""
+    thresholds).  Only measurements call it: the benchmark's
+    ``sfmbench/units/gs_steps.py``, ``chip_smoke.py`` and
+    ``bench_gs_torch.py``."""
     t_idx, c_idx = entered(logt).nonzero(as_tuple=True)
     px, py = pixel_coords(attrs.shape[0], ntx, attrs.device)
     rows = torch.arange(CHUNK, device=attrs.device)

@@ -24,8 +24,8 @@ screen-space offset probe (``means2d_offset``), gsplat's ``means2d.grad``.
 Each part runs under a span (``utils/debug.span``: ``gs.projection``,
 ``gs.sh``, ``gs.tile_sort``, ``gs.gather``, ``gs.composite``), a
 ``record_function`` scope under a profiler, by which a profile of a step
-assigns device time to the parts
-``utils/roofline.py::gs_step_cost`` counts.
+assigns device time to the parts the benchmark's
+``sfmbench/yardstick/gs_roofline.py::gs_step_cost`` counts.
 """
 
 from __future__ import annotations

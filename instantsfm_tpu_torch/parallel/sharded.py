@@ -2,20 +2,13 @@
 
 Counterpart of ``instantsfm_tpu/parallel/sharded.py``.  A JAX device of the
 mesh is a rank of a process group here, and each rank holds its slice of
-the problem:
-
-* point-local (the production path, ``optimize_auto``): the points are cut
-  into contiguous per-rank ranges with their observations (observations
-  are sorted by point), so landmark elimination never leaves the rank and
-  only the camera system, the PCG vectors and the scalars are all-reduced
-  (``block_lm``'s ``group``).  The bucketed layout (``solve/blocked.py``)
-  is split bucket by bucket, so every rank has the same bucket structure
-  (``partition_bucketed``) and runs K1 on its own buckets;
-* observation-sharded (``shard_problem`` + ``make_sharded_lm_step``): the
-  observations are cut evenly and every rank holds all points, so the
-  point-side sums are all-reduced as well and the Schur matvec runs its
-  plain chain (a track's rows may lie on several ranks, which K1 cannot
-  sum).
+the problem, point-local (``optimize_auto``): the points are cut into
+contiguous per-rank ranges with their observations (observations are
+sorted by point), so landmark elimination never leaves the rank and only
+the camera system, the PCG vectors and the scalars are all-reduced
+(``block_lm``'s ``group``).  The bucketed layout (``solve/blocked.py``) is
+split bucket by bucket, so every rank has the same bucket structure
+(``partition_bucketed``) and runs K1 on its own buckets.
 
 The partition functions are numpy on the host and give the arrays the JAX
 package gives.  ``ISFM_NO_SHARD=1`` keeps a multi-process run's solves on
@@ -61,64 +54,6 @@ def shard_world() -> int:
     if os.environ.get("ISFM_NO_SHARD") or not dist.is_initialized():
         return 1
     return dist.get_world_size()
-
-
-# ------------------------------------------------ observation-sharded
-
-def pad_observations(obs: Observations, multiple: int,
-                     num_points: int = None) -> Observations:
-    """Pad the observation axis to a multiple of the rank count; padded rows
-    are invalid and point at the LAST point, which keeps the rows sorted by
-    point."""
-    O = obs.valid.shape[0]
-    pad = (-O) % multiple
-    if pad == 0:
-        return obs
-    pad_pt = (num_points - 1) if num_points else 0
-    f = lambda a: torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-    return Observations(
-        cam_idx=f(obs.cam_idx),
-        pt_idx=torch.cat([obs.pt_idx, torch.full(
-            (pad,), pad_pt, dtype=obs.pt_idx.dtype,
-            device=obs.pt_idx.device)]),
-        data={k: f(v) for k, v in obs.data.items()},
-        valid=f(obs.valid))
-
-
-def pad_scales(params: Params, multiple: int) -> Params:
-    O = params.scales.shape[0]
-    pad = (-O) % multiple
-    if pad == 0:
-        return params
-    scales = torch.cat([params.scales, params.scales.new_zeros((pad, 1))])
-    free = torch.cat([params.scales_free, params.scales_free.new_zeros(pad)])
-    return Params(params.cam, params.pts, scales, free)
-
-
-def shard_problem(params: Params, obs: Observations, rank: int, world: int):
-    """This rank's even slice of the (padded) observations and scales; the
-    cameras and points stay whole on every rank."""
-    obs = pad_observations(obs, world, num_points=params.pts.shape[0])
-    params = pad_scales(params, world)
-    n = obs.valid.shape[0] // world
-    sl = slice(rank * n, (rank + 1) * n)
-    obs = Observations(obs.cam_idx[sl], obs.pt_idx[sl],
-                       {k: v[sl] for k, v in obs.data.items()}, obs.valid[sl])
-    return Params(params.cam, params.pts, params.scales[sl],
-                  params.scales_free[sl]), obs
-
-
-def make_sharded_lm_step(problem, kernel: robust.RobustKernel, cfg: LMConfig,
-                         device="cuda"):
-    """``step(state, obs)`` over ``shard_problem``'s slices: matrix-free PCG
-    (dense Schur would need every track on one rank), the point-side sums
-    all-reduced over the default group as well as the camera ones."""
-    cfg = dataclasses.replace(cfg, solver="pcg")
-    return partial(lm_step, problem, kernel, cfg, device=device,
-                   group=dist.group.WORLD, replicated_points=True)
-
-
-# ------------------------------------------------------- point-local
 
 
 class PointPartition(NamedTuple):

@@ -27,14 +27,12 @@ damped solve ``lm.solve`` (its PCG: ``pcg.graph`` with its replays
 ``lm.loss``.
 
 Across processes (``parallel/sharded.py``) each rank holds a slice of the
-observations and ``group`` is the process group, the counterpart of JAX's
-``axis_name``: every reduction over observations into camera space or into
-a scalar is all-reduced there (``_ar``), so the camera system, the PCG
-vectors and every scalar the host tests are the same on every rank and
-every rank takes the same branch.  With the points sharded with their
-observations (point-local, the default) the point-side sums stay on the
-rank; with ``replicated_points`` every rank holds all points and the
-point-side sums are all-reduced too, and the matvec runs its plain chain.
+points with their observations (point-local) and ``group`` is the process
+group, the counterpart of JAX's ``axis_name``: every reduction over
+observations into camera space or into a scalar is all-reduced there
+(``_ar``), so the camera system, the PCG vectors and every scalar the host
+tests are the same on every rank and every rank takes the same branch; the
+point-side sums stay on the rank.
 """
 
 from __future__ import annotations
@@ -181,8 +179,7 @@ def compute_cost(problem: BlockProblem, params: Params, obs: Observations,
 
 def build_system(problem: BlockProblem, params: Params, obs: Observations,
                  kernel: robust_mod.RobustKernel, num_points: int,
-                 buckets: tuple = (), group=None,
-                 replicated_points: bool = False) -> NormalSystem:
+                 buckets: tuple = (), group=None) -> NormalSystem:
     """Evaluate residuals + per-block Jacobians, apply robust whitening,
     form the per-observation products and reduce them into U/V/W/g.
 
@@ -194,7 +191,6 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
     PC = problem.cam_dim
     C = _num_cams(params)
     O_n = obs.valid.shape[0]
-    pt_group = group if replicated_points else None
     if ba_closed.covers(problem, kernel, buckets):
         _dbg.stat_add("lm_build_closed", 1)
         Ug, V, g_pt, W, loss_vec = ba_closed.build(problem, params, obs,
@@ -203,9 +199,9 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
         Ug = _ar(Ug, group)
         # no scale block: the solve reads none of its products
         zero = W.new_zeros(())
-        return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC),
-                            V=_ar(V, pt_group), W=W, g_cam=Ug[:, PC * PC:],
-                            g_pt=_ar(g_pt, pt_group), Hss=zero.expand(O_n),
+        return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC), V=V, W=W,
+                            g_cam=Ug[:, PC * PC:], g_pt=g_pt,
+                            Hss=zero.expand(O_n),
                             Jc_s=zero.expand(O_n, PC),
                             Jp_s=zero.expand(O_n, 3), g_s=zero.expand(O_n),
                             cost=cost, loss_vec=loss_vec)
@@ -252,8 +248,8 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
 
     Ug = _ar(_seg_by_cam(torch.cat([U_o.reshape(O_n, PC * PC), gc_o], dim=1),
                          obs.cam_idx, C), group)
-    V = _ar(_seg_by_pt(V_o, obs.pt_idx, num_points, buckets), pt_group)
-    g_pt = _ar(_seg_by_pt(gp_o, obs.pt_idx, num_points, buckets), pt_group)
+    V = _seg_by_pt(V_o, obs.pt_idx, num_points, buckets)
+    g_pt = _seg_by_pt(gp_o, obs.pt_idx, num_points, buckets)
     return NormalSystem(U=Ug[:, :PC * PC].reshape(C, PC, PC), V=V,
                         W=W.contiguous(), g_cam=Ug[:, PC * PC:], g_pt=g_pt,
                         Hss=Hss, Jc_s=Jc_s, Jp_s=Jp_s, g_s=g_s, cost=cost,
@@ -325,23 +321,11 @@ def schur_matvec(U_d, W, V_inv, cam_idx, pt_idx, buckets, x, group=None):
                                           buckets), group)
 
 
-def schur_matvec_replicated(U_d, W, V_inv, cam_idx, pt_idx, group, x):
-    """The Schur operator where a track's rows lie on several ranks: the
-    track sums and the camera sums are both all-reduced, so the plain chain
-    runs in place of K1."""
-    T = V_inv.shape[0]
-    t = _mtv(W, x[cam_idx])                                        # [O, 3]
-    s = _ar(t.new_zeros((T, 3)).index_add_(0, pt_idx, t), group)
-    u = _mv(W, _mv(V_inv, s)[pt_idx])                              # [O, PC]
-    return _mv(U_d, x) - _ar(_seg_by_cam(u, cam_idx, x.shape[0]), group)
-
-
-def pcg_on_graph(device, group=None, replicated_points=False) -> bool:
+def pcg_on_graph(device, group=None) -> bool:
     """Whether the reduced-camera PCG runs as captured CUDA graphs
     (``pcg.graph_pcg``): on a CUDA device with no process group.  Under a
     group the matvec all-reduces, and the eager loop (``pcg.pcg``) runs."""
-    return (torch.device(device).type == "cuda" and group is None
-            and not replicated_points)
+    return torch.device(device).type == "cuda" and group is None
 
 
 def _schur_ops(buckets, U_d, W, V_inv, cam_idx, pt_idx, D_inv):
@@ -355,12 +339,10 @@ def _schur_ops(buckets, U_d, W, V_inv, cam_idx, pt_idx, D_inv):
 def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                  lam, pcg_iters: int = 100, pcg_tol: float = 1e-5,
                  eps: float = 1e-8, dense_schur: Optional[bool] = None,
-                 buckets: tuple = (), group=None,
-                 replicated_points: bool = False):
+                 buckets: tuple = (), group=None):
     """Solve (H + lam diag(H)) dx = g: scalar elimination -> point (Schur)
     elimination -> reduced camera system, by dense Cholesky or by
     block-Jacobi PCG.  Returns (d_cam, d_pt, d_s, cg_iters)."""
-    pt_group = group if replicated_points else None
     PC = problem.cam_dim
     C = sys.U.shape[0]
     T = sys.V.shape[0]
@@ -387,8 +369,8 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
                                        1), cam_idx, C), group)
         U = U - cc[:, :PC * PC].reshape(C, PC, PC)
         g_cam = g_cam - cc[:, PC * PC:]
-        V = V - _ar(_seg_by_pt(V_corr, pt_idx, T, buckets), pt_group)
-        g_pt = g_pt - _ar(_seg_by_pt(gp_corr, pt_idx, T, buckets), pt_group)
+        V = V - _seg_by_pt(V_corr, pt_idx, T, buckets)
+        g_pt = g_pt - _seg_by_pt(gp_corr, pt_idx, T, buckets)
         W = W - W_corr
 
     U_d = _damped(U, lam, eps)
@@ -406,8 +388,6 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
     if dense_schur:
         # exact reduced solve: S = blockdiag(U_d) - Yᵀ Y with
         # Y[3p + k, c*PC + j] = (L_p^{-1} W_oᵀ)[k, j], L_p = chol(V_d)
-        if replicated_points:
-            raise ValueError("dense Schur needs each track on one rank")
         rhs = g_cam - _ar(_seg_by_cam(rhs_o, cam_idx, C), group)
         L = _chol3x3(V_d)
         P = _tri3_solve(_gather_by_pt(L, pt_idx, buckets, O),
@@ -448,24 +428,19 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         D = D + eps * torch.eye(PC, dtype=D.dtype, device=D.device)
         D_inv = torch.linalg.inv(D)
 
-        if pcg_on_graph(W.device, group, replicated_points):
+        if pcg_on_graph(W.device, group):
             d_cam, iters = graph_pcg(_schur_ops, buckets,
                                      (U_d, W, V_inv, cam_idx, pt_idx, D_inv),
                                      rhs, max_iters=pcg_iters, tol=pcg_tol)
         else:
-            if replicated_points:
-                matvec = partial(schur_matvec_replicated, U_d, W, V_inv,
-                                 cam_idx, pt_idx, group)
-            else:
-                matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx,
-                                 pt_idx, buckets, group=group)
+            matvec = partial(schur_matvec, U_d, W, V_inv, cam_idx, pt_idx,
+                             buckets, group=group)
             d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
                                   max_iters=pcg_iters, tol=pcg_tol)
         _dbg.stat_add("pcg_iters", iters)
 
     # back-substitute points: d_pt = V^-1 (g_pt - W^T d_cam)
-    wtd = _ar(_seg_by_pt(_mtv(W, d_cam[cam_idx]), pt_idx, T, buckets),
-              pt_group)
+    wtd = _seg_by_pt(_mtv(W, d_cam[cam_idx]), pt_idx, T, buckets)
     d_pt = _mv(V_inv, g_pt - wtd)
     d_s = _solve_scales(problem, sys, obs, d_cam, d_pt, lam, eps)
     return d_cam, d_pt, d_s, iters
@@ -520,10 +495,10 @@ def _apply_step(problem, params: Params, d_cam, d_pt, d_s) -> Params:
     return Params(cam, pts, scales, params.scales_free)
 
 
-def _sq_sum(group, replicated_points, a: Params, b: Params = None):
+def _sq_sum(group, a: Params, b: Params = None):
     """Sum of squares of the float parameters of ``a`` (or of ``a - b``)
-    over every rank: the cameras are the same on every rank, the scales
-    are the rank's own rows, and so are the points unless replicated."""
+    over every rank: the cameras are the same on every rank, the points and
+    the scales are the rank's own rows."""
     d = lambda x, y: x if y is None else x - y
     cam = sum(torch.sum(torch.square(d(a.cam[k], None if b is None
                                        else b.cam[k]))) for k in sorted(a.cam))
@@ -531,24 +506,20 @@ def _sq_sum(group, replicated_points, a: Params, b: Params = None):
     sc = torch.sum(torch.square(d(a.scales, None if b is None else b.scales)))
     if group is None:
         return cam + pts + sc
-    if replicated_points:
-        return cam + pts + _ar(sc, group)
     return cam + _ar(pts + sc, group)
 
 
 @_dbg.traced("lm.step")
 def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
             cfg: LMConfig, state: LMState, obs: Observations,
-            buckets: tuple = (), device="cuda", group=None,
-            replicated_points: bool = False) -> LMState:
+            buckets: tuple = (), device="cuda", group=None) -> LMState:
     """One LM iteration: build the system once, retry the damped solve with
     increasing damping while the cost gets materially worse (at most
     ``max_rejects`` retries).
 
     Under a process group (``group``) the solver must be named in ``cfg``
-    (``"pcg"``; dense Schur too where the points are point-local): "auto"
-    would read the rank's own point count, and ranks could then choose
-    differently."""
+    (``"pcg"`` or ``"dense"``): "auto" would read the rank's own point
+    count, and ranks could then choose differently."""
     check_on_device(device, state.params.pts)
     if group is not None and cfg.solver == "auto":
         raise ValueError("lm_step under a process group needs cfg.solver "
@@ -557,7 +528,7 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
     with _dbg.span("lm.build"):
         sys = build_system(problem, params, obs, kernel,
                            num_points=params.pts.shape[0], buckets=buckets,
-                           group=group, replicated_points=replicated_points)
+                           group=group)
     dense = None if cfg.solver == "auto" else (cfg.solver == "dense")
     loss_old = sys.loss_vec
     plateau_tol = 0.1 * cfg.function_tolerance
@@ -570,8 +541,7 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
         with _dbg.span("lm.solve"):
             d_cam, d_pt, d_s, _ = solve_damped(
                 problem, sys, obs, lam, cfg.pcg_iters, cfg.pcg_tol,
-                dense_schur=dense, buckets=buckets, group=group,
-                replicated_points=replicated_points)
+                dense_schur=dense, buckets=buckets, group=group)
         with _dbg.span("lm.loss"):
             cand = _apply_step(problem, params, d_cam, d_pt, d_s)
             loss_new = compute_loss_vec(problem, cand, obs, kernel,
@@ -590,8 +560,8 @@ def lm_step(problem: BlockProblem, kernel: robust_mod.RobustKernel,
     if accepted_h:
         lam_next = torch.clamp_min(lam / cfg.radius_up, 1.0 / cfg.radius_max)
         params_next, cost_next, dcost = cand, sys.cost + dc, dc
-        sq = _sq_sum(group, replicated_points, cand, params)
-        pq = _sq_sum(group, replicated_points, params)
+        sq = _sq_sum(group, cand, params)
+        pq = _sq_sum(group, params)
         rstep = torch.sqrt(sq / torch.clamp_min(pq, 1e-30))
     else:
         # on reject, raise the damping for the next iteration

@@ -1,6 +1,7 @@
 """The port's measuring entry points against the JAX package's, on the CPU.
 
-``utils/roofline.py``'s LM-step count equals JAX's integer for integer;
+The benchmark's frozen LM-step count (``sfmbench/yardstick/roofline.py``,
+which ``bench_torch.py`` reads) equals JAX's integer for integer;
 ``bench_torch.make_ba`` draws ``bench.make_ba``'s scene (the numpy draws
 bit for bit, the quaternions to 1e-12 in float64, float32 within one ulp);
 ``bench_e2e_torch.write_ring_db`` writes ``bench_e2e.build_scene_db``'s
@@ -9,15 +10,17 @@ step in float64 matches JAX x64's within ``tests/test_torch_ba.py``'s
 tolerances; ``bench_e2e_torch.run_pipeline`` records a pass on the CPU; and
 every entry point's ``main()`` raises without a card.
 
-The 3DGS step's count (``roofline.gs_step_cost``) on ``bench_gs_torch``'s
-step at 1,000 gaussians and 64x48, one step on the CPU through the plain
-versions: each part against a tally made apart (the parameter tensors'
-sizes, ``rasterize.tile_windows``, ``chip_smoke.composite_work``, the
-pixels), the same count at tile capacity 256 and 512 where no tile
-overflows, the SSIM term against torch's FLOP counter on a separable
-depthwise filter that equals ``gs/ssim.py``'s, ``bench_gs.py``'s roofline
-keys on a record built from a fake time, and every part of a profiled step
-assigned (``bench.time_by_scope``, as the trace tool uses it)."""
+The benchmark's 3DGS step count (``yardstick/gs_roofline.py::gs_step_cost``,
+which ``bench_gs_torch.py`` reads; its tile and chunk sizes are
+``gs/composite.py``'s) on ``bench_gs_torch``'s step at 1,000 gaussians and
+64x48, one step on the CPU through the plain versions: each part against a
+tally made apart (the parameter tensors' sizes, ``rasterize.tile_windows``,
+``chip_smoke.composite_work``, the pixels), the same count at tile
+capacity 256 and 512 where no tile overflows, the SSIM term against torch's
+FLOP counter on a separable depthwise filter that equals ``gs/ssim.py``'s,
+``bench_gs.py``'s roofline keys on a record built from a fake time, and
+every part of a profiled step assigned (``bench.time_by_scope``, as the
+trace tool uses it)."""
 
 import importlib
 import os
@@ -48,7 +51,9 @@ from instantsfm_tpu_torch.gs import rasterize as traster
 from instantsfm_tpu_torch.gs import ssim as tssim
 from instantsfm_tpu_torch.io.colmap_db import read_colmap_database as tread
 from instantsfm_tpu_torch.utils import bench as tbench
-from instantsfm_tpu_torch.utils import roofline as troofline
+# the benchmark's counts (``bench_torch`` puts ``sfmbench`` on the path)
+from yardstick import gs_roofline as ygs
+from yardstick import roofline as yroofline
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
@@ -65,7 +70,7 @@ TOOLS = os.path.join(os.path.dirname(os.path.dirname(
 def test_lm_step_cost_matches_jax(O, C, T, PC, cg, F, scales, onehot):
     kw = dict(O=O, C=C, T=T, PC=PC, cg_iters=cg, dtype_bytes=F,
               has_scales=scales, onehot_cam_reduce=onehot)
-    assert tuple(troofline.lm_step_cost(**kw)) == tuple(
+    assert tuple(yroofline.lm_step_cost(**kw)) == tuple(
         jroofline.lm_step_cost(**kw))
 
 
@@ -73,10 +78,10 @@ def test_lm_step_cost_matches_jax(O, C, T, PC, cg, F, scales, onehot):
 def test_analyze_analytic_matches_jax(t_step):
     """The same share and binding term as JAX's on a chip with the H100's
     peaks (JAX divides its peak FLOP rate by 4 for float32 products)."""
-    cost = troofline.lm_step_cost(O=401_408, C=200, T=50_176, PC=8,
+    cost = yroofline.lm_step_cost(O=401_408, C=200, T=50_176, PC=8,
                                   onehot_cam_reduce=False)
-    spec = troofline.H100_SXM
-    got = troofline.analyze_analytic(cost, t_step, spec)
+    spec = yroofline.H100_SXM
+    got = bench_torch.analyze_analytic(cost, t_step, spec)
     want = jroofline.analyze_analytic(
         jroofline.LMStepCost(*cost), t_step,
         spec=jroofline.ChipSpec("h100", 4 * spec.peak_flops_f32,
@@ -88,9 +93,9 @@ def test_analyze_analytic_matches_jax(t_step):
 
 
 def test_chip_spec_needs_published_peaks():
-    assert troofline.chip_spec("NVIDIA H100 80GB HBM3") == troofline.H100_SXM
+    assert yroofline.chip_spec("NVIDIA H100 80GB HBM3") == yroofline.H100_SXM
     with pytest.raises(ValueError):
-        troofline.chip_spec("cpu")
+        yroofline.chip_spec("cpu")
 
 
 def test_make_ba_matches_jax():
@@ -241,9 +246,9 @@ def test_gs_step_cost_parts_match_a_tally(gs_step):
     step = gs_step
     work, counts, (attrs, logt, ntx) = _render(step, 512)
     assert work == step.work()
-    cost = troofline.gs_step_cost(**work)
+    cost = ygs.gs_step_cost(**work)
     parts = cost.parts
-    assert tuple(parts) == troofline.GS_PARTS
+    assert tuple(parts) == ygs.GS_PARTS
     for i in range(3):
         assert cost[i] == sum(p[i] for p in parts.values())
     G = step.params["means"].shape[0]
@@ -286,8 +291,15 @@ def test_gs_step_cost_ignores_tile_capacity(gs_step):
     assert int(c512.max()) < 256 and torch.equal(c256, c512)
     assert a256.shape[1] == 256 and a512.shape[1] == 512
     assert w256 == w512
-    assert (troofline.gs_step_cost(**w256)
-            == troofline.gs_step_cost(**w512))
+    assert ygs.gs_step_cost(**w256) == ygs.gs_step_cost(**w512)
+
+
+def test_yardstick_tile_sizes_are_the_kernels():
+    """The benchmark's count and ``chip_smoke.py``'s K2/K3 bounds read the
+    yardstick's tile side, tile pixels, chunk rows and depth column: they
+    must be the compositing kernels' own."""
+    assert (ygs.TILE, ygs.P, ygs.CHUNK, ygs.DE) == (k23.TILE, k23.P,
+                                                    k23.CHUNK, k23.DE)
 
 
 def test_gs_step_cost_counts_ssim_as_its_separable_filter(gs_step):
@@ -307,9 +319,9 @@ def test_gs_step_cost_counts_ssim_as_its_separable_filter(gs_step):
                                tssim._filter2d(maps, win).numpy(),
                                rtol=0, atol=1e-12)
     five = fc.get_total_flops()
-    assert troofline.ssim_filter_flops(W, H, 5) == five
+    assert ygs.ssim_filter_flops(W, H, 5) == five
     n3, nv = 3 * W * H, 3 * (W - 10) * (H - 10)
-    parts = troofline.gs_step_cost(**gs_step.work()).parts
+    parts = ygs.gs_step_cost(**gs_step.work()).parts
     assert parts["loss_fwd"].flops == 3 * n3 + 3 * n3 + five + 18 * nv
     assert parts["loss_bwd"].flops == (2 * n3 + 7 * n3 + five * 8 / 5
                                        + 3 * 18 * nv)
@@ -333,11 +345,11 @@ def test_bench_gs_record_has_bench_gs_keys(gs_step, t_step):
                 for k in arg.keys}
     assert "roofline_frac" in jax_keys and "mfu" in jax_keys
     work = gs_step.work()
-    rec = bench_gs_torch.roofline_record(work, t_step, troofline.H100_SXM)
+    rec = bench_gs_torch.roofline_record(work, t_step, yroofline.H100_SXM)
     assert jax_keys - {"vs_baseline"} <= set(rec)
     assert "vs_baseline" not in rec and "roofline_note" not in rec
-    cost = troofline.gs_step_cost(**work)
-    spec = troofline.H100_SXM
+    cost = ygs.gs_step_cost(**work)
+    spec = yroofline.H100_SXM
     t_light = max(cost.hbm_bytes / spec.peak_bw,
                   cost.flops / spec.peak_flops_f32, cost.sfu / spec.peak_sfu)
     assert rec["roofline_frac"] == pytest.approx(t_light / t_step, rel=1e-12)
@@ -350,7 +362,7 @@ def test_bench_gs_record_has_bench_gs_keys(gs_step, t_step):
     assert rec["chip"] == spec.name
     assert rec["gflops_per_iter"] == cost.flops / 1e9
     assert rec["hbm_gb_per_iter"] == cost.hbm_bytes / 1e9
-    assert set(rec["roofline_parts"]) == set(troofline.GS_PARTS)
+    assert set(rec["roofline_parts"]) == set(ygs.GS_PARTS)
     assert max(rec["roofline_parts"].values()) <= rec["bound_ms"] <= sum(
         rec["roofline_parts"].values())
 
@@ -366,6 +378,6 @@ def test_time_by_scope_assigns_every_part(gs_step):
     parts, rest = tbench.time_by_scope(prof, 1, bench_gs_torch.PART_SCOPES,
                                        bench_gs_torch.PART_KERNELS,
                                        device=False)
-    assert set(parts) == set(troofline.GS_PARTS)
+    assert set(parts) == set(ygs.GS_PARTS)
     assert all(ms > 0 for ms in parts.values())
     assert sum(ms for _, ms in rest) < 0.1 * sum(parts.values())

@@ -155,12 +155,9 @@ def test_pcg_graph_path_only_on_one_cuda_device():
     """The reduced-camera PCG is captured only on a CUDA device with no
     process group; the CPU and the multi-process paths keep the loop."""
     assert tbl.pcg_on_graph(torch.device("cuda"))
-    assert tbl.pcg_on_graph("cuda:1", None, False)
+    assert tbl.pcg_on_graph("cuda:1", None)
     assert not tbl.pcg_on_graph(torch.device("cpu"))
     assert not tbl.pcg_on_graph("cuda", group=object())
-    assert not tbl.pcg_on_graph("cuda", group=object(),
-                                replicated_points=True)
-    assert not tbl.pcg_on_graph("cuda", None, replicated_points=True)
 
 
 @pytest.mark.parametrize("name,arg", [("trivial", None), ("huber", 1.0),

@@ -5,8 +5,11 @@ A wheel built offline from the project's metadata carries both
 ``utils/build.py`` builds into ``<package>/build`` where it can write there
 and into the user cache directory where it cannot (a read-only installed
 package), and processes that build at once each find a whole library.
-``nvcc`` is replaced by a stub that writes its output file: no compile."""
+``nvcc`` is replaced by a stub that writes its output file: no compile.
+No module of the package imports JAX, the JAX package or the measuring
+code beside it."""
 
+import ast
 import hashlib
 import importlib.util
 import json
@@ -47,6 +50,27 @@ def test_wheel_carries_the_cuda_sources(tmp_path):
                          ("ins-torch-gs", "instantsfm_tpu_torch.cli.gs"),
                          ("ins-sfm", "instantsfm_tpu.cli.sfm")):
         assert f"{name} = {target}:main" in entry
+
+
+def test_program_imports_no_jax_and_no_measuring_code():
+    """Every module of the port, parsed: it imports neither JAX nor the JAX
+    package (the port uses JAX only in tests), nor the benchmark
+    (``sfmbench``, its ``yardstick``), ``chip_smoke``, a root ``bench*``
+    script or ``tools``."""
+    banned = {"jax", "instantsfm_tpu", "sfmbench", "yardstick", "chip_smoke",
+              "tools"} | {p.stem for p in REPO.glob("bench*.py")}
+    found = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.relative_to(REPO)}:{node.lineno} {name}"
+                      for name in names if name.split(".")[0] in banned]
+    assert "bench_torch" in banned and not found, found
 
 
 def _copied_build_module(root: Path):

@@ -4,9 +4,9 @@ sharded.py``) against one process and against the JAX package.
 The host partition functions must give JAX's arrays exactly, at 2, 3 and 8
 shards.  One gloo group of two CPU processes (``tests/torch_dist.py``, a
 module fixture) runs, in float64 on the 10-camera scenes of
-``tests/test_sharded.py``: three point-local LM steps and three
-observation-sharded ones on BA and on GP, and ``optimize_auto`` (five LM
-iterations, too few for the window test, so both sides run all five).
+``tests/test_sharded.py``: three point-local LM steps on BA and on GP,
+and ``optimize_auto`` (five LM iterations, too few for the window test, so
+both sides run all five).
 They are held to ``tests/test_sharded.py``'s bars: cost rtol 1e-6, points
 1e-6, rotations 1e-8, GP centers 1e-7; ``optimize_auto`` to JAX's
 ``optimize_auto`` on the conftest's 8 virtual devices within that file's
@@ -173,8 +173,8 @@ def _close(got, want, kind):
 
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_partition_functions_match_jax(problems, n):
-    """``partition_points``, ``unpartition_*``, ``pad_*`` and
-    ``partition_bucketed`` give JAX's arrays exactly."""
+    """``partition_points``, ``unpartition_*`` and ``partition_bucketed``
+    give JAX's arrays exactly."""
     _, params, obs = problems["gp"]
     tp, to = _to_torch(params, obs)
     jp, jo, jmeta = jsh.partition_points(params, obs, n)
@@ -194,15 +194,6 @@ def test_partition_functions_match_jax(problems, n):
     np.testing.assert_array_equal(
         jsh.unpartition_scales(jp.scales, jmeta),
         tsh.unpartition_scales(pp.scales, meta))
-
-    jpo = jsh.pad_observations(obs, n, num_points=params.pts.shape[0])
-    tpo = tsh.pad_observations(to, n, num_points=tp.pts.shape[0])
-    for k in ("cam_idx", "pt_idx", "valid"):
-        np.testing.assert_array_equal(np.asarray(getattr(jpo, k)),
-                                      convert.to_numpy(getattr(tpo, k)))
-    np.testing.assert_array_equal(
-        np.asarray(jsh.pad_scales(params, n).scales),
-        convert.to_numpy(tsh.pad_scales(tp, n).scales))
 
     # the same bucketed problem through both partitions
     pad = -(-max(16, n) // n) * n
@@ -242,14 +233,6 @@ def test_pointlocal_step_matches_single_and_jax(group, single, problems,
         np.testing.assert_allclose(got["cam"]["c"],
                                    np.asarray(jstate.params.cam["c"]),
                                    atol=1e-7)
-
-
-@pytest.mark.parametrize("kind", ["ba", "gp"])
-def test_observation_sharded_step_matches_single(group, single, kind):
-    """Three observation-sharded steps (points on every rank, their sums
-    all-reduced, the plain Schur chain) against three single-process
-    steps."""
-    _close(group[f"{kind}_sharded"], single[kind], kind)
 
 
 @pytest.mark.parametrize("kind", ["ba", "gp"])

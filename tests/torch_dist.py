@@ -112,8 +112,8 @@ def lm_state0(params, cfg):
 
 
 def scenario_lm(payload, tmp):
-    """Point-local and observation-sharded LM steps and ``optimize_auto``
-    at this group's size, on every problem of the payload."""
+    """Point-local LM steps and ``optimize_auto`` at this group's size, on
+    every problem of the payload."""
     import torch.distributed as dist
 
     from instantsfm_tpu_torch.parallel import multihost, sharded
@@ -132,16 +132,6 @@ def scenario_lm(payload, tmp):
         out[f"{kind}_pointlocal"] = dict(
             cost=float(state.cost), cam=_np(state.params.cam),
             pts=sharded.unpartition_points(pts, meta))
-
-        sp, so = sharded.shard_problem(params, obs, rank, world)
-        step = sharded.make_sharded_lm_step(problem, kernel, cfg,
-                                            device="cpu")
-        state = lm_state0(sp, cfg)
-        for _ in range(payload["steps"]):
-            state = step(state, so)
-        out[f"{kind}_sharded"] = dict(cost=float(state.cost),
-                                      cam=_np(state.params.cam),
-                                      pts=_np(state.params.pts))
 
         cam, pts, hist = sharded.optimize_auto(problem, kernel, cfg, params,
                                                obs, device="cpu")

@@ -7,7 +7,7 @@ kernel name divided by the steps, largest first, with the device-busy time
 a step and its idle share, and writes the trace to
 ``gs_step_trace_torch.json`` in ``chip_smoke.OUT_DIR``.
 
-Then each part of ``utils/roofline.py::gs_step_cost`` with its device time
+Then each part of the benchmark's ``gs_step_cost`` with its device time
 a step beside its own bound (``parts``): a kernel goes to the part whose
 ``gs.<part>`` scope launched it, or, in the backward, to the part whose
 forward op made its autograd node (``bench.time_by_scope``; K2 and K3 by
@@ -27,10 +27,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench_gs_torch
 from instantsfm_tpu_torch.gs import composite as k23
-from instantsfm_tpu_torch.utils import bench, roofline
+from instantsfm_tpu_torch.utils import bench
 from instantsfm_tpu_torch.utils.device import full_f32
 
 from chip_smoke import OUT_DIR
+# the benchmark's count (``bench_gs_torch`` puts ``sfmbench`` on the path)
+from yardstick.gs_roofline import GS_PARTS, bound_s, gs_step_cost
+from yardstick.roofline import chip_spec
 
 
 def trace(steps, device, out_dir=OUT_DIR):
@@ -49,15 +52,15 @@ def trace(steps, device, out_dir=OUT_DIR):
                                           bench_gs_torch.PART_SCOPES,
                                           bench_gs_torch.PART_KERNELS)
     work = step.work()
-    cost = roofline.gs_step_cost(**work)
-    bounds = roofline.part_bounds_ms(cost)
-    rec.update(step_work=work, bound_ms=roofline.bound_ms(
-        cost.hbm_bytes, cost.flops, cost.sfu, roofline.chip_spec())[0])
+    cost = gs_step_cost(**work)
+    bounds = bench_gs_torch.part_bounds_ms(cost)
+    rec.update(step_work=work, bound_ms=bound_s(
+        cost.hbm_bytes, cost.flops, cost.sfu, chip_spec()) * 1e3)
     rec["parts"] = {
         part: dict(device_ms=device_ms.get(part, 0.0), bound_ms=bounds[part],
                    bound_over_device=(bounds[part] / device_ms[part]
                                       if device_ms.get(part) else None))
-        for part in roofline.GS_PARTS}
+        for part in GS_PARTS}
     rec["unassigned"] = [dict(name=name[:100], ms_per_step=ms)
                          for name, ms in rest]
     return rec
