@@ -21,8 +21,14 @@ Phases (any failure exits non-zero):
      modes, at the benchmark's ``ring-200.ba`` problem and on seeded
      problems of every covered camera model, poses free and frozen, both
      camera-sum branches, float32 and float64, within ``build_check``'s
-     bounds: ``BA_BUILD`` lines), with timings (CUDA events) and the
-     analytic memory/arithmetic bound;
+     bounds: ``BA_BUILD`` lines; the damped solve's set-up and
+     back-substitution kernels at the ``ring-200.ba`` problem at PC = 8, 3
+     and 2 and at 4,000 cameras, both branches of each, within
+     ``solve_check``'s bounds, and again on the first damped solve that
+     takes them in ``BA``, ``SFM`` (GP and BA), ``SFM_RETRI`` (PC = 2) and
+     ``SCALE`` (the set-up's global-atomic branch): ``SOLVE_KERNEL``
+     lines), with timings (CUDA events) and the analytic memory/arithmetic
+     bound;
   4. BA path: ``pipeline.ba.bundle_adjustment_rounds`` (3 rounds, float32)
      on a seeded synthetic scene at the ETH3D-indoor shape (200 images, 50k
      points, 8 observations per point), then one global-positioning LM
@@ -165,6 +171,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -204,6 +211,7 @@ from instantsfm_tpu_torch.pipeline.mapper import solve_global_mapper
 from instantsfm_tpu_torch.scene import cameras as cm
 from instantsfm_tpu_torch.scene.types import Cameras, Images, Tracks
 from instantsfm_tpu_torch.solve import ba_closed, block_lm, robust
+from instantsfm_tpu_torch.solve import schur_setup
 from instantsfm_tpu_torch.solve import schur_wchain as k1
 from instantsfm_tpu_torch.solve.blocked import (bucketize, bucketize_problem,
                                                 seg_by_pt)
@@ -844,6 +852,342 @@ def build_path_case(name, kept, reps=10):
     return rec
 
 
+# ------------------------------------------------------------ solve kernels
+
+SOLVE_FIELDS = ("V_inv", "D", "rhs", "d_pt")
+# Float32: each entry within SOLVE_F32_FACTOR times the float32 plain
+# version's own error against the float64 plain version, plus SOLVE_ULPS
+# unit roundoffs of the entry's rounding count (``solve_plain``), as the BA
+# build's check.  Float64: SOLVE_F64_TOL of the rounding count.
+SOLVE_F32_FACTOR = 4.0
+SOLVE_ULPS = 32
+SOLVE_F64_TOL = 1e-9
+SOLVE_LAM = 1e-4      # the seeded cases' damping: the LM's first (radius 1e4)
+SOLVE_EPS = 1e-8      # block_lm.solve_damped's eps
+
+
+def _in_dtype(args, dtype):
+    """Arguments with their floating tensors in ``dtype``."""
+    return tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def solve_fields(V_inv, dc, d_pt, PC):
+    """The set-up's and back-substitution's outputs by field: V_inv, dc
+    split into D (the preconditioner's camera sums) and rhs (the right-hand
+    side's), and d_pt."""
+    return dict(V_inv=V_inv, D=dc[:, :PC * PC], rhs=dc[:, PC * PC:],
+                d_pt=d_pt)
+
+
+def _track_lengths(pt_idx, buckets, T):
+    """[T] each point slot's rows: its bucket's L, or its count of rows."""
+    if not buckets:
+        return torch.bincount(pt_idx.long(), minlength=T)
+    L = torch.zeros(T, dtype=torch.int64, device=pt_idx.device)
+    for _, ps, Tb, Lb in buckets:
+        L[ps:ps + Tb] = Lb
+    return L
+
+
+def _adjugate_abs(M):
+    """The adjugate formula of ``block_lm``'s 3x3 inverse evaluated on |M|
+    with every difference of products made a sum, and the determinant's
+    the same way: the absolute chains of the formula's cofactors and of
+    its determinant, (adj [..., 3, 3], det [...])."""
+    M = M.abs()
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A, B, Cf = e * i + f * h, d * i + f * g, d * h + e * g
+    adj = torch.stack([A, b * i + c * h, b * f + c * e,
+                       B, a * i + c * g, a * f + c * d,
+                       Cf, a * h + b * g, a * e + b * d], -1)
+    return adj.reshape(M.shape), a * A + b * B + c * Cf
+
+
+def solve_plain(setup_args, backsub_args, dtype, counts=False, V_inv=None):
+    """The plain versions' outputs by field (``solve_fields``) in ``dtype``
+    on the arguments the kernels take, the camera sums evaluated from
+    ``V_inv`` where given (the kernel's: its sums are then held apart from
+    its inverse, whose rounding a point's condition amplifies).  With
+    ``counts`` also each entry's rounding count, the scale of a correct
+    evaluation's error in unit roundoffs u of the kernels' dtype:
+    V_inv's is (|V_inv| |V_d| |V_inv| + adj' / |det| + |V_inv| det' /
+    |det|) / (1 - rho): the inverse's sensitivity to a roundoff of each
+    entry of the damped V, then the roundings of the adjugate formula
+    itself (it is not backward stable), its cofactors' and its
+    determinant's absolute chains adj' and det' (``_adjugate_abs``) over
+    |det|, all over one less rho = SOLVE_ULPS u max(max_row(|V_inv|
+    |V_d|), det' / |det|), the bound's second-order factor; infinite where
+    rho >= 1, a point whose damped V is singular to the kernels'
+    precision, where its inverse is not determined; a camera
+    sum's (D, rhs) is sqrt(SUM_o S_o^2 + N (SUM_o out_o^2 + sum^2)), its
+    N rows' parts in quadrature and the roundings of its partial sums, as
+    in the BA build's count, a row's part S_o its absolute chain
+    2 |W| |V_inv| |W|ᵀ or 2 |W| |V_inv| |g_pt|; d_pt's is |V_inv| (2 |g_pt|
+    + 2 |t| + sqrt(L) SUM_track |W|ᵀ |d_cam|), t the track's sum of
+    Wᵀ d_cam over its L rows.  Returns (fields, counts or None)."""
+    unit = torch.finfo(setup_args[2].dtype).eps / 2
+    s, b = _in_dtype(setup_args, dtype), _in_dtype(backsub_args, dtype)
+    V, g_pt, W, lam, eps, cam_idx, pt_idx, buckets, C = s
+    V_d = schur_setup._damped(V, lam, eps)
+    Vi = schur_setup._inv3x3(V_d)
+    Vs = Vi if V_inv is None else V_inv.to(dtype)
+    dc = schur_setup.camera_sums_reference(Vs, g_pt, W, cam_idx, pt_idx,
+                                           buckets, C)
+    PC = W.shape[1]
+    fields = solve_fields(Vi, dc, schur_setup.backsub_reference(*b), PC)
+    if not counts:
+        return fields, None
+    O = W.shape[0]
+    gat = lambda x: schur_setup._gather_by_pt(x, pt_idx, buckets, O)
+    seg = lambda x: schur_setup._seg_by_cam(x, cam_idx, C)
+    Vi_abs = Vi.abs()
+    K = Vi_abs @ V_d.abs()
+    adj, det = _adjugate_abs(V_d)
+    det_cond = (det / torch.linalg.det(V_d).abs())[:, None, None]
+    rho = SOLVE_ULPS * unit * torch.maximum(
+        K.sum(-1).amax(-1)[:, None, None], det_cond)
+    Vi_cnt = torch.where(rho < 1, (K @ Vi_abs + adj * (det_cond / det[
+        :, None, None]) + Vi_abs * det_cond) / (1 - rho), torch.inf)
+    M, W_abs, Vg = gat(2 * Vs.abs()), W.abs(), gat(Vs)
+    S = torch.cat([(W_abs @ M @ W_abs.transpose(1, 2)).reshape(O, -1),
+                   (W_abs @ (M @ gat(g_pt.abs())[..., None]))[..., 0]], 1)
+    out = torch.cat([(W @ Vg @ W.transpose(1, 2)).reshape(O, -1),
+                     (W @ (Vg @ gat(g_pt)[..., None]))[..., 0]], 1)
+    rows = (W != 0).flatten(1).any(1, keepdim=True).to(dtype)
+    cam_cnt = torch.sqrt(seg(S * S) + seg(rows) * (seg(out * out) + dc * dc))
+    Wb, Vib, gb, d_cam, ci, pi, bb = b
+    T = Vib.shape[0]
+    segp = lambda x: schur_setup._seg_by_pt(x, pi, T, bb)
+    t = segp(torch.sum(Wb * d_cam[ci][..., :, None], dim=-2))
+    a = segp(torch.sum(Wb.abs() * d_cam[ci].abs()[..., :, None], dim=-2))
+    L = _track_lengths(pi, bb, T).to(dtype)
+    pt_cnt = (Vib.abs() @ (2 * gb.abs() + 2 * t.abs()
+                           + torch.sqrt(L)[:, None] * a)[..., None])[..., 0]
+    return fields, solve_fields(Vi_cnt, cam_cnt, pt_cnt, PC)
+
+
+def solve_compare(name, got, want, ref=None, counts=None):
+    """Raise unless every field of ``got`` is finite and within its bound
+    of the plain version: float64 (``ref`` None) SOLVE_F64_TOL ``counts``
+    of ``want``; float32 SOLVE_F32_FACTOR |want - ref| + SOLVE_ULPS u
+    ``counts``, ``want`` the float32 plain version, ``ref`` the float64 one
+    and ``counts`` its rounding counts (``solve_plain``).  Returns (the
+    worst error over its bound, the largest error, the worst ratio by
+    field)."""
+    by_field, max_err = {}, 0.0
+    for k in SOLVE_FIELDS:
+        g = got[k]
+        if ref is None:
+            err = (g - want[k]).abs()
+            bound = SOLVE_F64_TOL * counts[k]
+        else:
+            err = (g.double() - ref[k]).abs()
+            bound = (SOLVE_F32_FACTOR * (want[k].double() - ref[k]).abs()
+                     + SOLVE_ULPS * torch.finfo(g.dtype).eps / 2 * counts[k])
+        bad = ~(err <= bound)
+        if bad.any() or not torch.isfinite(g).all():
+            raise AssertionError(
+                f"solve kernels {name}: {k}: {int(bad.sum())} of "
+                f"{bad.numel()} entries beyond their bound, max err "
+                f"{err.max().item()}")
+        by_field[k] = torch.where(bound > 0, err / bound,
+                                  torch.zeros_like(err)).max().item()
+        max_err = max(max_err, err.max().item())
+    return max(by_field.values()), max_err, by_field
+
+
+def solve_verdict(name, got, setup_args, backsub_args):
+    """``solve_compare`` of the kernels' outputs ``got`` (``solve_fields``)
+    against the plain versions on the same inputs, the camera sums
+    evaluated from ``got``'s V_inv.  Returns (the worst error over its
+    bound, the largest error, the worst ratio by field, the point slots
+    whose V_inv no bound holds: damped V singular to the precision)."""
+    dtype = setup_args[2].dtype
+    if dtype == torch.float64:
+        want, counts = solve_plain(setup_args, backsub_args, dtype,
+                                   counts=True, V_inv=got["V_inv"])
+        ref = None
+    else:
+        want = solve_plain(setup_args, backsub_args, dtype,
+                           V_inv=got["V_inv"])[0]
+        ref, counts = solve_plain(setup_args, backsub_args, torch.float64,
+                                  counts=True, V_inv=got["V_inv"])
+    unbounded = int(torch.isinf(counts["V_inv"]).flatten(1).any(1).sum())
+    return (*solve_compare(name, got, want, ref, counts), unbounded)
+
+
+def solve_check(name, setup_args, backsub_args):
+    """Both kernels against their plain versions on the same card inputs
+    (``solve_verdict``; the launches here are not counted in
+    ``schur_setup.LAUNCHES``).  Returns ``solve_verdict``'s result."""
+    launches = dict(schur_setup.LAUNCHES)
+    V_inv, dc = schur_setup.setup(*setup_args)
+    d_pt = schur_setup.backsub(*backsub_args)
+    schur_setup.LAUNCHES.update(launches)
+    torch.cuda.synchronize()
+    got = solve_fields(V_inv, dc, d_pt, setup_args[2].shape[1])
+    return solve_verdict(name, got, setup_args, backsub_args)
+
+
+def solve_inputs(problem, params, obs, buckets, PC=None, seed=SEED,
+                 lam=SOLVE_LAM):
+    """(setup arguments, back-substitution arguments) of a damped solve of
+    a BA problem: its closed-form system's V, g_pt and W (W's first ``PC``
+    camera columns where given), damping ``lam``; the back-substitution
+    takes the plain set-up's V_inv and a seeded d_cam of the size of a
+    step."""
+    T = params.pts.shape[0]
+    C = params.cam["q"].shape[0]
+    _, V, g_pt, W, _ = ba_closed.build_reference(
+        problem, params, obs, robust.huber(1.0), T, buckets)
+    if PC is not None:
+        W = W[:, :PC].contiguous()
+    dt, dev = W.dtype, W.device
+    setup_args = (V, g_pt, W, torch.tensor(lam, dtype=dt, device=dev),
+                  SOLVE_EPS, obs.cam_idx, obs.pt_idx, buckets, C)
+    V_inv = schur_setup.setup_reference(*setup_args)[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_cam = 1e-3 * torch.randn((C, W.shape[1]), generator=g, device=dev,
+                               dtype=dt)
+    return setup_args, (W, V_inv, g_pt, d_cam, obs.cam_idx, obs.pt_idx,
+                        buckets)
+
+
+def solve_bound(setup_args):
+    """(set-up bound_ms, back-substitution bound_ms, set-up bytes,
+    back-substitution bytes): each pass reads a row's W and cam_idx once;
+    the set-up a slot's V and g_pt and writes its V_inv, and writes dc; the
+    back-substitution reads a slot's V_inv and g_pt, writes its d_pt, and
+    reads d_cam; at 3.35 TB/s."""
+    V, _, W, _, _, _, _, _, C = setup_args
+    s, (O, PC), T = W.element_size(), W.shape[:2], V.shape[0]
+    rows = O * (3 * PC * s + 4)
+    setup = rows + T * (9 + 3 + 9) * s + C * (PC * PC + PC) * s
+    backsub = rows + T * (9 + 3 + 3) * s + C * PC * s
+    return (setup / HBM_BYTES_PER_S * 1e3, backsub / HBM_BYTES_PER_S * 1e3,
+            setup, backsub)
+
+
+def solve_case(name, setup_args, backsub_args, reps, plain=True):
+    """One input: the check, each kernel's time cold and warm, the plain
+    versions' (with ``plain``), and the byte bounds (``SOLVE_KERNEL``
+    line).  The launches made here are not counted in
+    ``schur_setup.LAUNCHES``."""
+    worst, max_err, by_field, unbounded = solve_check(name, setup_args,
+                                                      backsub_args)
+    launches = dict(schur_setup.LAUNCHES)
+    V, _, W, _, _, cam_idx, _, buckets, C = setup_args
+    dev, dt, PC = W.device, W.dtype, W.shape[1]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    setup = lambda: schur_setup.setup(*setup_args)
+    backsub = lambda: schur_setup.backsub(*backsub_args)
+    setup_bound, backsub_bound, setup_bytes, backsub_bytes = solve_bound(
+        setup_args)
+    ms, back_ms = time_ms(setup, reps, flush), time_ms(backsub, reps, flush)
+    plain_ms = lambda fn, args: (time_ms(lambda: fn(*args), 3, queued=False)
+                                 if plain else None)
+    rec = dict(case=name, dtype=str(dt).replace("torch.", ""), PC=PC,
+               rows=W.shape[0], points=V.shape[0], cams=C,
+               L=sorted({b[3] for b in buckets}),
+               branch=("shared" if schur_setup.shared_table(C, PC, dt)
+                       else "global"),
+               backsub_branch=("shared" if schur_setup.backsub_shared(
+                   C, PC, dt) else "global"),
+               lam=float(setup_args[3]),
+               max_err_over_bound=worst, max_err_over_bound_by_field=by_field,
+               max_abs_err=max_err, v_inv_unbounded_points=unbounded,
+               ms=ms, ms_warm_l2=time_ms(setup, reps),
+               backsub_ms=back_ms, backsub_ms_warm_l2=time_ms(backsub, reps),
+               plain_ms=plain_ms(schur_setup.setup_reference, setup_args),
+               backsub_plain_ms=plain_ms(schur_setup.backsub_reference,
+                                         backsub_args),
+               bound_ms=setup_bound, backsub_bound_ms=backsub_bound,
+               bound_by="bytes", share=setup_bound / ms,
+               backsub_share=backsub_bound / back_ms,
+               mbytes=setup_bytes / 1e6, backsub_mbytes=backsub_bytes / 1e6)
+    schur_setup.LAUNCHES.update(launches)
+    log("SOLVE_KERNEL " + json.dumps(rec))
+    return rec
+
+
+def solve_parity(device):
+    """Both solve kernels at the benchmark's BA cell, W cut to PC = 8, 3
+    and 2 (the widths of BA, GP and retriangulation's frozen-pose BA) in
+    float32 and at PC = 8 in float64, and on a seeded problem at 4,000
+    cameras (the set-up's global-atomic branch and the back-substitution's
+    d_cam read through L1), float32 and float64."""
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        inputs = ring_ba_inputs(dtype, device)
+        for PC in ((8, 3, 2) if dtype == torch.float32 else (8,)):
+            cases.append(solve_case(
+                f"ring_200_ba_pc{PC}", *solve_inputs(*inputs, PC=PC),
+                reps=50, plain=PC == 8))
+        del inputs
+        lengths = np.random.default_rng(SEED).choice([2, 3, 8, 30, 300],
+                                                     size=6000)
+        cases.append(solve_case("many_cams", *solve_inputs(*build_inputs(
+            cm.SIMPLE_RADIAL, True, 4000, lengths, dtype, device)), reps=20))
+    if {c["branch"] for c in cases} != {"shared", "global"} or \
+            {c["backsub_branch"] for c in cases} != {"shared", "global"}:
+        raise AssertionError("solve kernel cases do not reach both branches")
+    return cases
+
+
+@contextlib.contextmanager
+def solve_first_input(keep):
+    """While the block runs ``schur_setup.setup`` and ``backsub`` are
+    wrapped, and the first damped solve that takes the kernels with set-up
+    arguments for which ``keep(args)`` holds has its set-up's and its
+    back-substitution's arguments copied into the yielded dict (``setup``,
+    ``backsub``)."""
+    setup, backsub = schur_setup.setup, schur_setup.backsub
+    kept, pending, copies = {}, {}, {}
+
+    def copied(args):
+        # one copy of a tensor both passes take (W, g_pt, the indices)
+        for a in args:
+            if torch.is_tensor(a) and id(a) not in copies:
+                copies[id(a)] = a.clone()
+        return tuple(copies[id(a)] if torch.is_tensor(a) else a
+                     for a in args)
+
+    def setup_spy(*args):
+        if not kept and schur_setup.covers(args[2], args[7]) and keep(args):
+            pending["setup"] = copied(args)
+        return setup(*args)
+
+    def backsub_spy(*args):
+        if pending:
+            kept.update(setup=pending.pop("setup"), backsub=copied(args))
+            copies.clear()
+        return backsub(*args)
+
+    schur_setup.setup, schur_setup.backsub = setup_spy, backsub_spy
+    try:
+        yield kept
+    finally:
+        schur_setup.setup, schur_setup.backsub = setup, backsub
+
+
+def solve_path_case(name, kept, reps=10):
+    """``solve_case`` on the input a phase kept (``solve_first_input``):
+    both kernels held against their plain versions on what the path gave
+    them; None where the phase kept none."""
+    if not kept:
+        return None
+    rec = solve_case(name, kept["setup"], kept["backsub"], reps, plain=False)
+    kept.clear()
+    # the check's float64 temporaries reach tens of GB at SCALE's 15.6 M
+    # rows: hand the cached blocks back for the processes of later phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ------------------------------------------------------------ K2/K3 parity
 
 def composite_branch_cases(K, seed=SEED):
@@ -1342,7 +1686,8 @@ def run_ba(device):
     debug.drain_stats()
     torch.cuda.synchronize()
     k1.schur_wchain.launches = k1.schur_wchain.plain_calls = 0
-    with build_first_input(lambda *_: True) as kept:
+    with build_first_input(lambda *_: True) as kept, \
+            solve_first_input(lambda _: True) as solve_kept:
         t0 = time.perf_counter()
         tracks_out = ba.bundle_adjustment_rounds(
             cameras, images, tracks, opts, thr, rounds=3,
@@ -1359,6 +1704,8 @@ def run_ba(device):
                  (images.qvec, images.tvec, tracks.xyz, cameras.params))
     # the BA build kernel on the first system the rounds built
     build_rec = build_path_case("ba_first_input", kept)
+    # both solve kernels on the rounds' first damped solve
+    solve_rec = solve_path_case("ba_first_input", solve_kept)
     cost1 = scene_cost(cameras, images, tracks, device)
     rot1, cen1 = pose_errors(images, gt)
     pcg_iters = stats.get("pcg_iters", [])
@@ -1375,7 +1722,7 @@ def run_ba(device):
                step_ms=step_ms,
                k1_launches=launches,
                k1_plain_calls=k1.schur_wchain.plain_calls,
-               ba_build=build_rec,
+               ba_build=build_rec, solve_kernels=solve_rec,
                cost_before=cost0, cost_after=cost1,
                rot_err_deg_before=rot0, rot_err_deg_after=rot1,
                center_err_rel_before=cen0, center_err_rel_after=cen1,
@@ -1388,6 +1735,8 @@ def run_ba(device):
             launches >= sum(pcg_iters) and launches > 0,
         "BA build kernel held against its plain version on the rounds' "
         "first input": build_rec is not None and build_rec["PC"] == 8,
+        "solve kernels held against their plain versions on the rounds' "
+        "first input": solve_rec is not None and solve_rec["PC"] == 8,
         "rotation error no worse": rot1 <= rot0,
         "center error no worse": cen1 <= cen0,
     }
@@ -1578,7 +1927,9 @@ def run_sfm(device, root, profile=False):
 
     out = os.path.join(root, "sparse")
     with k1_by_stage(done, k1_inputs_at, by_stage) as shapes, \
-            build_first_input(lambda *_: True) as kept:
+            build_first_input(lambda *_: True) as kept, \
+            solve_first_input(lambda a: a[2].shape[1] == 3) as gp_kept, \
+            solve_first_input(lambda a: a[2].shape[1] == 8) as ba_kept:
         pipe, _, images, _ = run_pipeline(dbpath, out, device,
                                           stage_hook=hook)
     graphs = pcg_graphs(debug.REGISTRY.roots("mapper")[-1], shapes)
@@ -1596,6 +1947,8 @@ def run_sfm(device, root, profile=False):
               for stage, args in k1_inputs_at.items()}
     del k1_inputs_at
     build_rec = build_path_case("sfm_ba_first_input", kept)
+    solve_recs = {"gp": solve_path_case("sfm_gp_first_input", gp_kept),
+                  "ba": solve_path_case("sfm_ba_first_input", ba_kept)}
     rot, ate = sfm_errors(images, gt)
     rec = dict(
         pipe, points=SFM_POINTS, pairs=n_pairs, matches=n_matches,
@@ -1606,7 +1959,7 @@ def run_sfm(device, root, profile=False):
         k1_max_abs_err_ba=k1_sfm.get("bundle_adjustment", {}).get(
             "max_abs_err"),
         k1_on_mapper_inputs=k1_sfm, k1_launches_by_stage=by_stage,
-        pcg_graphs=graphs, ba_build=build_rec,
+        pcg_graphs=graphs, ba_build=build_rec, solve_kernels=solve_recs,
         relpose_profile=relpose_prof,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
@@ -1628,6 +1981,10 @@ def run_sfm(device, root, profile=False):
             set(k1_sfm) == {"global_positioning", "bundle_adjustment"},
         "BA build kernel held against its plain version on BA's first "
         "input": build_rec is not None and build_rec["PC"] == 8,
+        "solve kernels held against their plain versions on GP's and BA's "
+        "first inputs": all(solve_recs[k] is not None
+                            and solve_recs[k]["PC"] == pc
+                            for k, pc in (("gp", 3), ("ba", 8))),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1663,7 +2020,8 @@ def run_sfm_retri(device, dbpath, gt):
     with k1_tally(lambda W, C: W.shape[1] if in_retri() else None,
                   retri_by_pc, keep_pc2_input) as shapes, \
             build_first_input(lambda problem, _: problem.cam_dim == 2) \
-            as kept:
+            as kept, \
+            solve_first_input(lambda a: a[2].shape[1] == 2) as solve_kept:
         t0 = time.perf_counter()
         view_graph, cameras, images, feature_name = read_colmap_database(dbpath)
         cameras, images, tracks, timings = solve_global_mapper(
@@ -1679,6 +2037,7 @@ def run_sfm_retri(device, dbpath, gt):
     k1_pc2 = (k1_sfm_check("retriangulation (PC = 2)", retri_input["args"],
                            device) if retri_input else None)
     build_rec = build_path_case("retri_pc2_first_input", kept)
+    solve_rec = solve_path_case("retri_pc2_first_input", solve_kept)
     rot, ate = sfm_errors(images, gt)
     gp = launches_at.get("global_positioning", 0)
     ba_ = launches_at.get("bundle_adjustment", gp)
@@ -1701,6 +2060,7 @@ def run_sfm_retri(device, dbpath, gt):
         k1_launches_retri=retri - ba_, k1_launches_retri_by_pc=retri_by_pc,
         k1_launches_total=launches, k1_plain_calls=plain_calls,
         k1_on_retri_pc2_input=k1_pc2, pcg_graphs=graphs, ba_build=build_rec,
+        solve_kernels=solve_rec,
         rot_err_deg_max=float(rot.max()), rot_err_deg_mean=float(rot.mean()),
         ate_rel_max=float(ate.max()), ate_rel_mean=float(ate.mean()),
         card=card_line())
@@ -1720,6 +2080,8 @@ def run_sfm_retri(device, dbpath, gt):
             k1_pc2 is not None and k1_pc2["PC"] == 2,
         "BA build kernel held against its plain version on a PC = 2 input":
             build_rec is not None and build_rec["PC"] == 2,
+        "solve kernels held against their plain versions on a PC = 2 input":
+            solve_rec is not None and solve_rec["PC"] == 2,
         "K1 launched only in GP, BA and retriangulation": launches == retri,
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -1908,7 +2270,9 @@ def run_scale(device, root, scene=SCALE_2K):
     ba.optimize = ba_round
     try:
         with k1_by_stage(done, first_input, launches) as shapes, \
-                build_first_input(global_table) as kept:
+                build_first_input(global_table) as kept, \
+                solve_first_input(lambda a: not schur_setup.shared_table(
+                    a[8], a[2].shape[1], a[2].dtype)) as solve_kept:
             pipe, _, images, tracks = run_pipeline(dbpath, sparse, device,
                                                    stage_hook=hook)
     finally:
@@ -1936,12 +2300,14 @@ def run_scale(device, root, scene=SCALE_2K):
               for stage, args in first_input.items()}
     first_input.clear()
     build_rec = build_path_case("scale_ba_first_global_input", kept, reps=5)
+    solve_rec = solve_path_case("scale_first_global_input", solve_kept,
+                                reps=5)
     rec = dict(
         pipe, scene=scene, setup_s=setup_s, pairs=n_pairs, matches=n_matches,
         read_model_s=read_model_s, eval_s=eval_s,
         model_images=len(imgs_m), model_points=len(pts_m),
         k1_launches=launches, k1=k1_rec, pcg_graphs=graphs,
-        ba_build=build_rec,
+        ba_build=build_rec, solve_kernels=solve_rec,
         rot_err_deg_mean=float(rot.mean()), rot_err_deg_max=float(rot.max()),
         ate_rel_mean=float(ate.mean()), ate_rel_max=float(ate.max()),
         errors_by_stage=errors_at, eval=scores, card=card_line())
@@ -1972,6 +2338,9 @@ def run_scale(device, root, scene=SCALE_2K):
         checks["BA build kernel held against its plain version on an "
                "input of its global-atomic branch"] = (
             build_rec is not None and build_rec["branch"] == "global")
+        checks["solve kernels held against their plain versions on an "
+               "input of the set-up's global-atomic branch"] = (
+            solve_rec is not None and solve_rec["branch"] == "global")
         checks["BA's first K1 input takes the global-atomic branch"] = (
             ba_first.get("branch") == "global" and not k1.shared_table(
                 ba_first.get("cams", 0), 8, torch.float32))
@@ -4259,6 +4628,31 @@ def build_entry(cases, path_cases, launches):
         launches_by_entry_point=launches)
 
 
+def solve_entry(cases, path_cases, launches):
+    """The solve kernels in the kernels line: a port kernel pair with no
+    TPU counterpart, in place of ``solve_damped``'s per-row torch passes
+    on the PCG path; ``path_cases`` are the checks on the inputs the phases
+    gave them."""
+    main_case = next(c for c in cases if c["case"] == "ring_200_ba_pc8"
+                     and c["dtype"] == "float32")
+    keys = ("dtype", "PC", "rows", "cams", "branch", "max_err_over_bound",
+            "max_abs_err", "ms", "backsub_ms", "bound_ms", "backsub_bound_ms")
+    return kernel_entry(
+        "schur_setup", "instantsfm_tpu_torch/csrc/schur_setup.cu", None,
+        sum(v["setup"] for v in launches.values()), main_case,
+        replaces_fn="instantsfm_tpu_torch/solve/block_lm.py::solve_damped "
+                    "(its per-row torch passes on the PCG path; the JAX "
+                    "package's are XLA ops, no Pallas kernel)",
+        backsub_ms=main_case["backsub_ms"],
+        backsub_bound_ms=main_case["backsub_bound_ms"],
+        share=main_case["share"], backsub_share=main_case["backsub_share"],
+        max_err_over_bound=max(c["max_err_over_bound"]
+                               for c in [*cases, *path_cases.values()]),
+        path_inputs={phase: {k: c[k] for k in keys}
+                     for phase, c in path_cases.items()},
+        launches_by_entry_point=launches)
+
+
 def k23_entry(which, main_case, hand_cases, gs_rec, pix_rec, opts_rec,
               dist_rec, bench_rec):
     """K2 (which = 0) or K3 (1) in the kernels line."""
@@ -4331,7 +4725,8 @@ def main(argv=None):
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    build.build_all(["schur_wchain", "composite_tiles", "ba_build"])
+    build.build_all(["schur_wchain", "composite_tiles", "ba_build",
+                     "schur_setup"])
     build_s = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.txt"), "w") as f:
@@ -4339,17 +4734,23 @@ def main(argv=None):
             f.write(f"== {name} ({info['seconds']:.1f} s)\n{info['log']}\n")
     log(f"build: {build_s:.1f} s (nvcc, sm_90a, sources built in parallel)")
     build_launches, seen = {}, dict(ba_closed.LAUNCHES)
+    solve_launches, solve_seen = {}, dict(schur_setup.LAUNCHES)
 
     def launched(phase):
-        """The BA build kernel's launches (build, loss mode) in ``phase``
-        (the checks' own launches are not counted)."""
+        """The BA build kernel's launches (build, loss mode) and the solve
+        kernels' (set-up, back-substitution) in ``phase`` (the checks' own
+        launches are not counted)."""
         build_launches[phase] = {k: v - seen[k]
                                  for k, v in ba_closed.LAUNCHES.items()}
         seen.update(ba_closed.LAUNCHES)
+        solve_launches[phase] = {k: v - solve_seen[k]
+                                 for k, v in schur_setup.LAUNCHES.items()}
+        solve_seen.update(schur_setup.LAUNCHES)
 
     k1_cases = k1_parity(device)
     k23_hand = k23_parity(device)
     build_cases = build_parity(device)
+    solve_cases = solve_parity(device)
     first_jacfwd(device)
     # --profile: also print the BA phase's spans and reads (seconds, counts)
     debug.REGISTRY.totals.clear()
@@ -4392,7 +4793,14 @@ def main(argv=None):
             phase: rec["ba_build"] for phase, rec in (
                 ("ba", ba_rec), ("sfm", sfm_rec), ("sfm_retri", retri_rec),
                 ("scale", scale_rec)) if rec.get("ba_build")},
-            build_launches)]
+            build_launches)] + [solve_entry(solve_cases, {
+                phase: c for phase, c in (
+                    ("ba", ba_rec["solve_kernels"]),
+                    ("sfm_gp", sfm_rec["solve_kernels"]["gp"]),
+                    ("sfm_ba", sfm_rec["solve_kernels"]["ba"]),
+                    ("sfm_retri", retri_rec["solve_kernels"]),
+                    ("scale", scale_rec["solve_kernels"])) if c},
+            solve_launches)]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,15 +43,13 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from instantsfm_tpu_torch.math import lie
 from instantsfm_tpu_torch.scene import cameras as cm
 from instantsfm_tpu_torch.solve.blocked import seg_by_pt
-from instantsfm_tpu_torch.solve.schur_wchain import (MAX_BUCKETS,
-                                                     SHARED_TABLE_BYTES,
-                                                     launch_table)
+from instantsfm_tpu_torch.solve.schur_wchain import (SHARED_TABLE_BYTES,
+                                                     tiled_table)
 from instantsfm_tpu_torch.utils import build as _build
 
 MODELS = (cm.SIMPLE_PINHOLE, cm.SIMPLE_RADIAL)
@@ -277,19 +275,11 @@ def _launch_build(problem, params, obs, kernel, num_points, buckets):
         problem, params, obs, kernel)
     PC = problem.cam_dim
     C, O = q.shape[0], valid.shape[0]
-    if len(buckets) > MAX_BUCKETS:
-        raise ValueError(f"{len(buckets)} buckets > MAX_BUCKETS={MAX_BUCKETS}")
-    row_start, rows, pt_start, log_l, item_off = launch_table(tuple(buckets))
-    if int(rows.sum()) != O:
-        raise ValueError(f"buckets cover {int(rows.sum())} rows, the "
-                         f"observations have {O}")
-    # every point slot is written once: the buckets' point ranges must
-    # tile [0, num_points) in order, as seg_by_pt's concatenation does
-    ends = np.cumsum([Tb for (_, _, Tb, _) in buckets])
-    if list(pt_start) != [0, *ends[:-1]] or ends[-1] != num_points \
-            or num_points != pts.shape[0]:
-        raise ValueError("the buckets' point slots do not tile the "
-                         f"{num_points} points in order")
+    if num_points != pts.shape[0]:
+        raise ValueError(f"num_points {num_points} is not the {pts.shape[0]} "
+                         "point slots")
+    row_start, rows, pt_start, log_l, item_off = tiled_table(buckets, O,
+                                                             num_points)
     dev, dt = pts.device, pts.dtype
     W = torch.empty((O, PC, 3), dtype=dt, device=dev)
     loss = torch.empty((O,), dtype=dt, device=dev)

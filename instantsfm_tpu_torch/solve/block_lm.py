@@ -11,7 +11,11 @@ Counterpart of ``instantsfm_tpu/solve/block_lm.py`` (its row-major path):
   ``index_add_``) and V (points, bucketed reshape-sums); V is inverted in
   closed form and the reduced camera system is solved by dense Cholesky
   (small problems) or block-Jacobi PCG, whose Schur matvec runs the K1
-  kernel on the card (``solve/schur_wchain.py``).
+  kernel on the card (``solve/schur_wchain.py``).  On the PCG path the
+  per-row passes around it, V's inverse with the preconditioner's and the
+  right-hand side's camera sums before it and the point back-substitution
+  after it, are one kernel launch each on the card
+  (``solve/schur_setup.py``).
 * Trust region: multiplicative damping on the JᵀJ diagonal, differential
   acceptance on per-observation loss differences, lam / radius_down on
   reject (no upper clamp, as in the reference).
@@ -48,8 +52,11 @@ from torch.func import jacfwd, vmap
 
 from instantsfm_tpu_torch.solve import ba_closed
 from instantsfm_tpu_torch.solve import robust as robust_mod
-from instantsfm_tpu_torch.solve.blocked import gather_pt, seg_by_pt
+from instantsfm_tpu_torch.solve import schur_setup
 from instantsfm_tpu_torch.solve.pcg import graph_pcg, pcg
+from instantsfm_tpu_torch.solve.schur_setup import (_damped, _gather_by_pt,
+                                                    _inv3x3, _mv, _seg_by_cam,
+                                                    _seg_by_pt)
 from instantsfm_tpu_torch.solve.schur_wchain import recorded, schur_wchain
 from instantsfm_tpu_torch.utils import debug as _dbg
 from instantsfm_tpu_torch.utils.device import check_on_device, full_f32
@@ -114,26 +121,6 @@ def _ar(x, group):
 
 def _num_cams(params: Params) -> int:
     return next(iter(params.cam.values())).shape[0]
-
-
-def _seg_by_cam(x, cam_idx, C):
-    """Camera-indexed sum [O, ...] -> [C, ...] (atomics on CUDA: the order of
-    the additions changes from run to run)."""
-    return x.new_zeros((C,) + tuple(x.shape[1:])).index_add_(0, cam_idx, x)
-
-
-def _seg_by_pt(x, pt_idx, T, buckets):
-    """Point-indexed sum: bucketed reshape-sums, or a segment sum."""
-    if buckets:
-        return seg_by_pt(x, buckets, T)
-    return x.new_zeros((T,) + tuple(x.shape[1:])).index_add_(0, pt_idx, x)
-
-
-def _gather_by_pt(arr, pt_idx, buckets, O):
-    """Point-indexed gather: broadcast per bucket, or plain gather."""
-    if buckets:
-        return gather_pt(arr, buckets, O)
-    return arr[pt_idx]
 
 
 def _gathered(params: Params, obs: Observations):
@@ -256,42 +243,6 @@ def build_system(problem: BlockProblem, params: Params, obs: Observations,
                         loss_vec=loss_vec)
 
 
-def _mv(M, v):
-    """Batched M @ v as mul-sum: [..., i, j], [..., j] -> [..., i]."""
-    return torch.sum(M * v[..., None, :], dim=-1)
-
-
-def _mtv(M, v):
-    """Batched Mᵀ @ v as mul-sum: [..., i, j], [..., i] -> [..., j]."""
-    return torch.sum(M * v[..., :, None], dim=-2)
-
-
-def _damped(M, lam, eps):
-    """JᵀJ block + lam * diag(JᵀJ) + eps * I (multiplicative LM damping)."""
-    d = torch.diagonal(M, dim1=-2, dim2=-1)
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    return M + eye * (lam * d + eps)[..., :, None]
-
-
-def _inv3x3(M):
-    """Closed-form batched 3x3 inverse (adjugate / det); 0 where det ~ 0."""
-    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    A = e * i - f * h
-    B = -(d * i - f * g)
-    Cf = d * h - e * g
-    det = a * A + b * B + c * Cf
-    inv_det = torch.where(torch.abs(det) < 1e-30, torch.zeros_like(det),
-                          1.0 / det)
-    adj = torch.stack([
-        A, -(b * i - c * h), (b * f - c * e),
-        B, (a * i - c * g), -(a * f - c * d),
-        Cf, -(a * h - b * g), (a * e - b * d),
-    ], dim=-1).reshape(M.shape)
-    return adj * inv_det[..., None, None]
-
-
 def _chol3x3(M):
     """Closed-form batched Cholesky of SPD (..., 3, 3): M = L Lᵀ."""
     a = torch.sqrt(M[..., 0, 0].clamp_min(1e-30))
@@ -380,14 +331,13 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         d_s = _solve_scales(problem, sys, obs, d_cam, d_pt, lam, eps)
         return d_cam, d_pt, d_s, 0
 
-    V_d = _damped(V, lam, eps)
-    V_inv = _inv3x3(V_d)
     O = W.shape[0]
-    rhs_o = _mv(W, _gather_by_pt(_mv(V_inv, g_pt), pt_idx, buckets, O))
-
     if dense_schur:
         # exact reduced solve: S = blockdiag(U_d) - Yᵀ Y with
         # Y[3p + k, c*PC + j] = (L_p^{-1} W_oᵀ)[k, j], L_p = chol(V_d)
+        V_d = _damped(V, lam, eps)
+        V_inv = _inv3x3(V_d)
+        rhs_o = _mv(W, _gather_by_pt(_mv(V_inv, g_pt), pt_idx, buckets, O))
         rhs = g_cam - _ar(_seg_by_cam(rhs_o, cam_idx, C), group)
         L = _chol3x3(V_d)
         P = _tri3_solve(_gather_by_pt(L, pt_idx, buckets, O),
@@ -415,14 +365,17 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
         d_cam = torch.cholesky_solve(rhs.reshape(n, 1), chol).reshape(C, PC)
         d_cam = torch.where(info == 0, d_cam, torch.nan)
         iters = 0
+        d_pt = schur_setup.backsub_reference(W, V_inv, g_pt, d_cam, cam_idx,
+                                             pt_idx, buckets)
     else:
-        # block-Jacobi preconditioner on the Schur diagonal; its camera
-        # reduction and the rhs correction share one index_add_
-        Vg = _gather_by_pt(V_inv, pt_idx, buckets, O)             # [O, 3, 3]
-        WVi = torch.sum(W[:, :, :, None] * Vg[:, None, :, :], dim=2)
-        D_corr = torch.sum(WVi[:, :, None, :] * W[:, None, :, :], -1)
-        dc = _ar(_seg_by_cam(torch.cat([D_corr.reshape(O, PC * PC), rhs_o], 1),
-                             cam_idx, C), group)
+        # V^-1 and the camera sums of the block-Jacobi preconditioner's
+        # Schur diagonal and of the rhs correction: on the card one kernel
+        # launch, counted in lm_solve_kernel (else lm_solve_torch)
+        _dbg.stat_add("lm_solve_kernel" if schur_setup.covers(W, buckets)
+                      else "lm_solve_torch", 1)
+        V_inv, dc = schur_setup.setup(V, g_pt, W, lam, eps, cam_idx, pt_idx,
+                                      buckets, C)
+        dc = _ar(dc, group)
         rhs = g_cam - dc[:, PC * PC:]
         D = U_d - dc[:, :PC * PC].reshape(C, PC, PC)
         D = D + eps * torch.eye(PC, dtype=D.dtype, device=D.device)
@@ -438,10 +391,9 @@ def solve_damped(problem: BlockProblem, sys: NormalSystem, obs: Observations,
             d_cam, _, iters = pcg(matvec, rhs, lambda v: _mv(D_inv, v),
                                   max_iters=pcg_iters, tol=pcg_tol)
         _dbg.stat_add("pcg_iters", iters)
-
-    # back-substitute points: d_pt = V^-1 (g_pt - W^T d_cam)
-    wtd = _seg_by_pt(_mtv(W, d_cam[cam_idx]), pt_idx, T, buckets)
-    d_pt = _mv(V_inv, g_pt - wtd)
+        # back-substitute points: d_pt = V^-1 (g_pt - W^T d_cam)
+        d_pt = schur_setup.backsub(W, V_inv, g_pt, d_cam, cam_idx, pt_idx,
+                                   buckets)
     d_s = _solve_scales(problem, sys, obs, d_cam, d_pt, lam, eps)
     return d_cam, d_pt, d_s, iters
 

@@ -112,6 +112,22 @@ def launch_table(buckets):
                  for a in (row_start, rows, pt_start, log_l, item_off))
 
 
+def tiled_table(buckets, rows, slots):
+    """``launch_table(buckets)``, checked to cover ``rows`` rows and to tile
+    the point slots [0, ``slots``) in order, as ``blocked.seg_by_pt``'s
+    concatenation does: a kernel that writes each point slot once (the BA
+    build, the solve's set-up and back-substitution) needs both."""
+    table = launch_table(tuple(buckets))
+    if int(table[1].sum()) != rows:
+        raise ValueError(f"buckets cover {int(table[1].sum())} rows, the "
+                         f"inputs have {rows}")
+    ends = np.cumsum([Tb for (_, _, Tb, _) in buckets])
+    if list(table[2]) != [0, *ends[:-1]] or ends[-1] != slots:
+        raise ValueError("the buckets' point slots do not tile the "
+                         f"{slots} point slots in order")
+    return table
+
+
 @lru_cache(maxsize=None)
 def _lib():
     """The kernel's library (built on first use) with its C signatures."""

@@ -43,7 +43,8 @@ def test_wheel_carries_the_cuda_sources(tmp_path):
         entry = z.read(next(n for n in names
                             if n.endswith("entry_points.txt"))).decode()
     cu = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert cu == ["ba_build.cu", "composite_tiles.cu", "schur_wchain.cu"]
+    assert cu == ["ba_build.cu", "composite_tiles.cu", "schur_setup.cu",
+                  "schur_wchain.cu"]
     assert all(f"instantsfm_tpu_torch/csrc/{f}" in names for f in cu)
     for name, target in (("ins-torch-sfm", "instantsfm_tpu_torch.cli.sfm"),
                          ("ins-torch-feat", "instantsfm_tpu_torch.cli.feat"),

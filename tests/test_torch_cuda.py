@@ -24,6 +24,7 @@ FMA contraction)."""
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from instantsfm_tpu_torch.gs import composite as k23
 from instantsfm_tpu_torch.solve import schur_wchain as k1
@@ -505,6 +506,268 @@ def test_lm_steps_kernel_path_match_plain_path(monkeypatch):
                                    atol=1e-6)
     np.testing.assert_allclose(got.params.pts.cpu().numpy(),
                                want.params.pts.cpu().numpy(), atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def ring_solve_inputs():
+    """The benchmark's ``ring-200.ba`` problem on the card by dtype
+    (``chip_smoke.ring_ba_inputs``), made once."""
+    _need_card()
+    import chip_smoke
+    return {dt: chip_smoke.ring_ba_inputs(dt, "cuda")
+            for dt in (torch.float32, torch.float64)}
+
+
+def _solve_holds(name, setup_args, backsub_args):
+    """Both solve kernels against their plain versions
+    (``chip_smoke.solve_check``: float32 entry by entry within 4 times the
+    float32 plain version's own error against the float64 plain version
+    plus 32 unit roundoffs of the entry's rounding count, since the camera
+    sums' atomics and the track sums' butterfly add in other orders that
+    change from run to run, and V's inverse amplifies a roundoff by its
+    condition; the camera sums are evaluated from the kernel's own V_inv;
+    float64 within 1e-9 of the rounding count), each kernel launched
+    once."""
+    import chip_smoke
+    from instantsfm_tpu_torch.solve import schur_setup
+    before = dict(schur_setup.LAUNCHES)
+    schur_setup.setup(*setup_args)
+    schur_setup.backsub(*backsub_args)
+    assert schur_setup.LAUNCHES == {"setup": before["setup"] + 1,
+                                    "backsub": before["backsub"] + 1}
+    worst, _, _, _ = chip_smoke.solve_check(name, setup_args,
+                                            backsub_args)
+    assert worst <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("PC", [2, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_kernels_match_reference(PC, dtype, ring_solve_inputs):
+    """At the ``ring-200.ba`` cell's shape (1.2 M rows, 200 cameras, its
+    track layout), W cut to the widths of GP (3) and retriangulation's
+    frozen-pose BA (2): both kernels against their plain versions."""
+    import chip_smoke
+    from instantsfm_tpu_torch.solve import schur_setup
+
+    dt = getattr(torch, dtype)
+    setup_args, backsub_args = chip_smoke.solve_inputs(
+        *ring_solve_inputs[dt], PC=PC)
+    assert setup_args[2].shape[1] == PC and setup_args[2].shape[0] > 10 ** 6
+    assert schur_setup.shared_table(200, PC, dt)
+    _solve_holds(f"ring pc{PC}", setup_args, backsub_args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poses", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_kernels_at_the_shared_memory_edges(poses, dtype):
+    """At the most cameras the set-up keeps in its shared table and one
+    more (global atomics), and at the most the back-substitution copies
+    d_cam for and one more (d_cam read through L1), PC = 8 and 2: both
+    kernels launch and match their plain versions."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    from instantsfm_tpu_torch.solve import schur_setup
+
+    dt = getattr(torch, dtype)
+    PC = 8 if poses else 2
+    lengths = np.random.default_rng(2).choice([2, 3, 8, 30], size=3000)
+    for fn in (schur_setup.shared_table, schur_setup.backsub_shared):
+        edge = max(C for C in range(1, 20_000) if fn(C, PC, dt))
+        for C in (edge, edge + 1):
+            inputs = chip_smoke.build_inputs(cm.SIMPLE_RADIAL, poses, C,
+                                             lengths, dt, "cuda")
+            args = chip_smoke.solve_inputs(*inputs)
+            assert args[0][2].shape[1] == PC and fn(C, PC, dt) == (C == edge)
+            _solve_holds(f"{fn.__name__} C={C}", *args)
+
+
+def _small_solve_inputs(dtype=torch.float32, lam=1e-4):
+    import chip_smoke
+    from instantsfm_tpu_torch.scene import cameras as cm
+    return chip_smoke.solve_inputs(*chip_smoke.build_inputs(
+        cm.SIMPLE_RADIAL, True, 20, [2, 4, 8, 40, 300] * 40, dtype, "cuda"),
+        lam=lam)
+
+
+@pytest.mark.cuda
+def test_solve_kernels_invert_a_singular_v_to_zero():
+    """A point whose damped V is singular (all zero, or of rank one, with
+    no damping) gets V_inv = 0, as the plain version's |det| < 1e-30 rule
+    gives; its rows add nothing to the camera sums."""
+    _need_card()
+    from instantsfm_tpu_torch.solve import schur_setup
+
+    setup_args, _ = _small_solve_inputs()
+    V, g_pt, W, _, _, cam_idx, pt_idx, buckets, C = setup_args
+    p0, p1 = (int(pt_idx[o]) for o in torch.nonzero(
+        W.flatten(1).any(1))[[0, -1], 0])
+    V = V.clone()
+    V[p0] = 0.0
+    V[p1] = 1.0
+    args = (V, g_pt, W, torch.zeros((), device="cuda"), 0.0, cam_idx, pt_idx,
+            buckets, C)
+    V_inv, dc = schur_setup.setup(*args)
+    want_V_inv, want_dc = schur_setup.setup_reference(*args)
+    for p in (p0, p1):
+        assert torch.equal(V_inv[p], torch.zeros_like(V_inv[p]))
+        assert torch.equal(want_V_inv[p], V_inv[p])
+    assert torch.isfinite(dc).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["V", "g_pt", "d_cam"])
+def test_solve_kernels_keep_nan(where):
+    """A NaN in V or g_pt of a point with rows gives that point a NaN
+    V_inv (V) and d_pt, and its cameras NaN sums; a NaN in d_cam gives
+    every point with a row on that camera a NaN d_pt, as the plain
+    version: the candidate's loss is then NaN and ``lm_step`` rejects it.
+    The kernel's NaN entries are the plain version's, but for camera 0's
+    sums, which the plain version also takes from the layout's zero rows
+    of a NaN point."""
+    _need_card()
+    from instantsfm_tpu_torch.solve import schur_setup
+
+    setup_args, backsub_args = _small_solve_inputs()
+    V, g_pt, W, lam, eps, cam_idx, pt_idx, buckets, C = setup_args
+    o = int(torch.nonzero(W.flatten(1).any(1))[5, 0])
+    p, c = int(pt_idx[o]), int(cam_idx[o])
+    V, g_pt = V.clone(), g_pt.clone()
+    d_cam = backsub_args[3].clone()
+    {"V": V[p], "g_pt": g_pt[p], "d_cam": d_cam[c]}[where][0] = float("nan")
+    args = (V, g_pt, W, lam, eps, cam_idx, pt_idx, buckets, C)
+    V_inv, dc = schur_setup.setup(*args)
+    want_V_inv, want_dc = schur_setup.setup_reference(*args)
+    d_pt = schur_setup.backsub(W, V_inv, g_pt, d_cam, cam_idx, pt_idx,
+                               buckets)
+    want_d_pt = schur_setup.backsub_reference(W, want_V_inv, g_pt, d_cam,
+                                              cam_idx, pt_idx, buckets)
+    nan = lambda t: torch.isnan(t).flatten(1).any(1)
+    assert torch.equal(nan(V_inv), nan(want_V_inv))
+    assert torch.equal(nan(dc)[1:], nan(want_dc)[1:])
+    assert not nan(dc)[0] or nan(want_dc)[0]
+    assert torch.equal(nan(d_pt), nan(want_d_pt))
+    if where == "d_cam":
+        seen = torch.zeros_like(nan(d_pt))
+        seen[pt_idx[cam_idx == c].long()] = True
+        assert torch.equal(nan(d_pt), seen) and not nan(dc).any()
+    else:
+        assert nan(d_pt)[p] and nan(dc)[c]
+        assert bool(nan(V_inv)[p]) == (where == "V")
+
+
+@pytest.mark.cuda
+def test_solve_kernels_read_nothing_on_the_host(monkeypatch):
+    """The damping is read on the device: neither kernel's launch
+    synchronises with the host (CUDA's sync debug mode raises on one), and
+    three LM steps on the kernels read the host as often as on the plain
+    versions: one ``lm.accept`` a try and one ``pcg.exit`` a replay."""
+    _need_card()
+    import chip_smoke
+    from instantsfm_tpu_torch.solve import block_lm, robust, schur_setup
+    from instantsfm_tpu_torch.solve.blocked import bucketize_problem
+    from instantsfm_tpu_torch.solve.problems import make_ba_problem
+    from instantsfm_tpu_torch.utils import debug
+
+    setup_args, backsub_args = _small_solve_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        schur_setup.setup(*setup_args)
+        schur_setup.backsub(*backsub_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    cameras, images, tracks, _ = chip_smoke.make_scene(num_cams=20,
+                                                       num_pts=9000)
+    params, obs = chip_smoke.scene_problem(cameras, images, tracks,
+                                           torch.float32, "cuda")
+    params, obs, buckets, _ = bucketize_problem(params, obs)
+    problem = make_ba_problem(cameras.uniform_model_id)
+    cfg = block_lm.LMConfig(solver="pcg")
+
+    def reads_per_step():
+        z = torch.zeros((), device="cuda")
+        state = block_lm.LMState(params, z + 1e-4, z + float("inf"), z, z)
+        debug.drain_stats()
+        for _ in range(3):
+            state = block_lm.lm_step(problem, robust.huber(1.0), cfg, state,
+                                     obs, buckets=buckets)
+        roots = debug.REGISTRY.roots("lm.step")[-3:]
+        stats = debug.drain_stats()
+        reads = {k: sum(r["reads"].get(k, (0, 0))[0] for r in roots)
+                 for k in ("lm.accept", "pcg.exit")}
+        replays = sum(r["spans"]["pcg.replay"][0] for r in roots)
+        assert set().union(*(r["reads"] for r in roots)) == {"lm.accept",
+                                                              "pcg.exit"}
+        assert reads == {"lm.accept": sum(stats["lm_tries"]),
+                         "pcg.exit": replays}
+        return stats
+
+    launches = dict(schur_setup.LAUNCHES)
+    on_kernels = reads_per_step()
+    tries = sum(on_kernels["lm_tries"])
+    assert on_kernels["lm_solve_kernel"] == [1] * tries
+    assert schur_setup.LAUNCHES == {k: v + tries for k, v in launches.items()}
+    monkeypatch.setattr(schur_setup, "covers", lambda W, b: False)
+    assert reads_per_step()["lm_solve_torch"]
+
+
+class RowOps(TorchDispatchMode):
+    """Records the aten ops run while it is on that take or give a tensor
+    of ``rows`` rows and compute something: every op but views,
+    allocations and fills (a fill of the rows, ``_solve_scales``' zero
+    step of a problem without scales, is no product, reduction, gather,
+    ``index_add_`` or ``cat``), and but those run under a ``pcg.graph``
+    span (the CUDA graph solve's copies of its operands)."""
+
+    FREE = {"view", "_unsafe_view", "reshape", "_reshape_alias", "expand",
+            "as_strided", "slice", "select", "t", "transpose", "unsqueeze",
+            "squeeze", "permute", "diagonal", "alias", "detach", "lift_fresh",
+            "empty", "empty_strided", "empty_like", "new_empty", "zeros",
+            "new_zeros", "zeros_like", "fill_", "zero_", "_to_copy"}
+
+    def __init__(self, rows):
+        super().__init__()
+        self.rows, self.found = rows, set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_flatten
+        from instantsfm_tpu_torch.utils import debug
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        in_graph = any(sp.name == "pcg.graph"
+                       for sp in debug.REGISTRY._stack)
+        if name not in self.FREE and not in_graph and any(
+                isinstance(t, torch.Tensor) and t.dim() > 0
+                and t.shape[0] == self.rows
+                for t in tree_flatten((args, kwargs, out))[0]):
+            self.found.add(name)
+        return out
+
+
+@pytest.mark.cuda
+def test_damped_solve_runs_no_per_row_torch_on_the_kernels():
+    """One damped solve of a bucketed BA problem (no scales) on the card,
+    after a first solve has captured the PCG's graphs, under ``RowOps``:
+    no aten op outside the graph solve computes on a tensor of the row
+    count (no product, reduction, gather, index_add_ or cat over the
+    rows)."""
+    _need_card()
+    from instantsfm_tpu_torch.solve import block_lm
+
+    problem, system, obs, buckets = _damped_inputs("ba", torch.float32)
+    lam = torch.tensor(1e-4, dtype=torch.float32, device="cuda")
+    solve = lambda: block_lm.solve_damped(problem, system, obs, lam,
+                                          dense_schur=False, buckets=buckets)
+    solve()
+    torch.cuda.synchronize()
+    with RowOps(system.W.shape[0]) as probe:
+        d_pt = solve()[1]
+    assert torch.isfinite(d_pt).all()
+    assert probe.found == set(), probe.found
 
 
 def _rel_close(got, want, rel):
